@@ -1,0 +1,775 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port (``zkevm_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, each printing its own lines before the last line:
+
+0. the card's name and power limit (``nvidia-smi``);
+1. build of the hand-written kernels A-D from ``zkevm_tpu_torch/csrc``;
+2. every kernel against its plain PyTorch version on the card, bit for bit,
+   with timings and bounds;
+3. the K=5 toy proof, field by field against the reference proof recorded
+   in ``tests/vectors/torch_port_toy_proof.json``;
+4. the main path at full size: ``unsafe_setup(20)``, the KeccakTable
+   circuit filled with messages made from ``--seed``, ``keygen``,
+   ``create_proof``, ``verify_proof`` (True, and False on a tampered
+   eval), with the kernels' launch counts over that path;
+5. the kernels again at the shapes that path gives them (the MSM over
+   2^20 points, the per-lane scalar multiplication over 2^20 lanes, the
+   batched NTT at k=20 and the quotient's transforms at its extended k,
+   the quotient's (2^20, 64, 8) field broadcasts), each against its plain
+   version bit for bit, timed beside its bound.
+
+Then one JSON line with every kernel's numbers and, last, the ok line.
+Any failure exits non-zero before the ok line. Without CUDA, or without
+the package beside this script, it fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+# 32-bit integer multiply(-add) instructions per second: 132 SMs x 64 INT32
+# lanes x 1.98 GHz (the clock behind the data sheet's 67 TFLOP/s float32).
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# Multiply instructions (a low and a high half per word product) of one
+# 8-word Montgomery product: 64 word products for a*b, 8 for the m_i, 64 for
+# m*p. A squaring needs only the 36 distinct word products of a*a.
+MUL_INT_OPS = 2 * 64 + 8 + 2 * 64
+SQR_INT_OPS = 2 * 36 + 8 + 2 * 64
+# G1 formulas in Jacobian coordinates, as products and squarings over Fq:
+ADD_INT_OPS = 11 * MUL_INT_OPS + 5 * SQR_INT_OPS  # add-2007-bl, both inputs Jacobian
+MADD_INT_OPS = 7 * MUL_INT_OPS + 4 * SQR_INT_OPS  # madd-2007-bl, second input affine
+DBL_INT_OPS = 2 * MUL_INT_OPS + 5 * SQR_INT_OPS  # dbl-2009-l
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound(nbytes: float, int_ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = int_ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cuda_ms(torch, fn, reps: int = 5) -> float:
+    """Mean device time of fn() in ms over reps calls, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+class Report:
+    """Collects one record per kernel for the final JSON line."""
+
+    SOURCES = {
+        "field_mul": ("zkevm_tpu_torch/csrc/field.cu", "zkevm_tpu/ff/limbs.py:225"),
+        "field_add_sub": ("zkevm_tpu_torch/csrc/field.cu", "zkevm_tpu/ff/limbs.py:192"),
+        "field_pow": ("zkevm_tpu_torch/csrc/field.cu", "zkevm_tpu/ff/limbs.py:300"),
+        "ntt": ("zkevm_tpu_torch/csrc/ntt.cu", "zkevm_tpu/poly/ntt.py:55"),
+        "g1_add": ("zkevm_tpu_torch/csrc/curve.cu", "zkevm_tpu/ec/group.py:113"),
+        "g1_scalar_mul": ("zkevm_tpu_torch/csrc/curve.cu", "zkevm_tpu/ec/group.py:177"),
+        "msm": ("zkevm_tpu_torch/csrc/curve.cu", "zkevm_tpu/ec/psmsm.py:234"),
+        "keccak": ("zkevm_tpu_torch/csrc/keccak.cu", "zkevm_tpu/hash/keccak.py:60"),
+    }
+
+    def __init__(self):
+        self.rows: dict[str, dict] = {}
+
+    def record(self, name, shape, err, ms, plain_ms, nbytes, int_ops, library_ms=None):
+        b, by = bound(nbytes, int_ops)
+        src, rep = self.SOURCES[name]
+        self.rows[name] = {
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "library_ms": library_ms, "shape": shape,
+        }
+        log(f"  {name:14s} {shape:34s} err={err} kernel={ms:.4f} ms plain={plain_ms:.2f} ms "
+            f"bound={b:.4f} ms ({by})")
+
+
+def _popcounts(torch, words):
+    """Set bits of each (..., 8) int32 element (SWAR on int64)."""
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((((x * 0x01010101) & 0xFFFFFFFF) >> 24)).sum(dim=-1)
+
+
+def _bit_lengths(torch, words):
+    """Bit length of each (..., 8) int32 element (0 for zero)."""
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    per_word = sum(((x >> b) != 0).to(torch.int64) for b in range(32))
+    offset = 32 * torch.arange(8, device=words.device)
+    return torch.where(per_word > 0, offset + per_word, 0).max(dim=-1).values
+
+
+def scalar_mul_int_ops(torch, scalars) -> int:
+    """Multiply instructions of left-to-right double-and-add over these
+    (n, 8) standard-form scalars from an affine base: per non-zero scalar,
+    bit_length - 1 doublings and popcount - 1 mixed additions."""
+    lengths = _bit_lengths(torch, scalars)
+    nz = lengths > 0
+    dbls = int((lengths - 1)[nz].sum().item())
+    adds = int((_popcounts(torch, scalars) - 1)[nz].sum().item())
+    return dbls * DBL_INT_OPS + adds * MADD_INT_OPS
+
+
+def msm_int_ops(torch, scalars, c: int) -> int:
+    """Multiply instructions of a c-bit-window bucket MSM over these (n, 8)
+    standard-form scalars with affine bases: a mixed addition for every
+    non-zero digit after the first of its bucket, two full additions per
+    bucket for the running sums, then c doublings and one full addition per
+    window for Horner."""
+    w = scalars.to(torch.int64) & 0xFFFFFFFF
+    bits = torch.cat([w, torch.zeros_like(w[:, :1])], dim=1)  # room for the last window
+    bucket_adds, windows = 0, 0
+    for start in range(0, 256, c):
+        word, off = divmod(start, 32)
+        v = bits[:, word] >> off
+        if off + c > 32:
+            v = v | (bits[:, word + 1] << (32 - off))
+        v = v & ((1 << c) - 1)
+        filled = int((torch.bincount(v, minlength=1 << c)[1:] > 0).sum().item())
+        bucket_adds += int((v != 0).sum().item()) - filled
+        windows += 1
+    running = 2 * windows * ((1 << c) - 1)
+    horner_dbl, horner_add = (windows - 1) * c, windows - 1
+    return (bucket_adds * MADD_INT_OPS + (running + horner_add) * ADD_INT_OPS
+            + horner_dbl * DBL_INT_OPS)
+
+
+def max_abs_err(torch, a, b) -> int:
+    """Largest absolute difference between two integer tensors (0 = equal)."""
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+def plain_ms_of(torch, fn) -> tuple[object, float]:
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def random_field(torch, spec, n, gen, dev):
+    """n canonical field elements (top word below p's), with 0, 1, p-1."""
+    w = torch.randint(0, 1 << 32, (n, 8), generator=gen, dtype=torch.int64)
+    top = (spec.modulus >> 224) & 0xFFFFFFFF
+    w[:, 7] = w[:, 7] % top
+    w = (w - ((w >> 31) << 32)).to(torch.int32)
+    from zkevm_tpu_torch.ff import field as ff
+    w[:3] = ff.to_tensor(ff.words_from_ints([0, 1, spec.modulus - 1]), "cpu")
+    return w.to(dev)
+
+
+def check_equal(what: str, err: int) -> None:
+    if err != 0:
+        raise AssertionError(f"{what}: kernel differs from the plain version (max abs err {err})")
+
+
+def phase_field(torch, rep: Report, gen, dev, n: int) -> None:
+    from zkevm_tpu_torch.ff import field as ff
+
+    worst = {"field_mul": 0, "field_add_sub": 0, "field_pow": 0}
+    times = {}
+    for spec in (ff.FR, ff.FQ):
+        a = random_field(torch, spec, n, gen, dev)
+        b = random_field(torch, spec, n, gen, dev).flip(0).contiguous()
+        cases = [
+            ("field_mul", "mul", lambda: ff.mont_mul(spec, a, b), lambda: ff.PLAIN["mul"](spec, a, b)),
+            ("field_mul", "sqr", lambda: ff.sqr(spec, a), lambda: ff.PLAIN["mul"](spec, a, a)),
+            ("field_mul", "to_mont", lambda: ff.to_mont(spec, a),
+             lambda: ff.PLAIN["mul"](spec, a, ff._raw(spec.r2, str(dev)))),
+            ("field_mul", "from_mont", lambda: ff.from_mont(spec, a),
+             lambda: ff.PLAIN["mul"](spec, a, ff._raw(1, str(dev)))),
+            ("field_mul", "bcast", lambda: ff.mont_mul(spec, a.reshape(-1, 64, 8), b[:64]),
+             lambda: ff.PLAIN["mul"](spec, a.reshape(-1, 64, 8), b[:64])),
+            ("field_add_sub", "add", lambda: ff.add(spec, a, b), lambda: ff.PLAIN["add"](spec, a, b)),
+            ("field_add_sub", "sub", lambda: ff.sub(spec, a, b), lambda: ff.PLAIN["sub"](spec, a, b)),
+            ("field_add_sub", "neg", lambda: ff.neg(spec, a),
+             lambda: ff.PLAIN["sub"](spec, torch.zeros_like(a), a)),
+            ("field_pow", "inv", lambda: ff.inv(spec, a),
+             lambda: ff.PLAIN["pow"](spec, a, spec.modulus - 2)),
+        ]
+        for kname, op, kern, plain in cases:
+            got = kern()
+            want, pms = plain_ms_of(torch, plain)
+            err = max_abs_err(torch, got, want)
+            check_equal(f"{spec.name} {op}", err)
+            worst[kname] = max(worst[kname], err)
+            if op in ("mul", "add", "inv") and spec.name == "Fr":
+                times[kname] = (cuda_ms(torch, kern), pms)
+        inv = ff.inv(spec, a)
+        prod = ff.mont_mul(spec, a, inv)
+        one = spec.mont_one(dev)
+        ok = (prod[3:] == one).all() and (inv[0] == 0).all()
+        if not bool(ok):
+            raise AssertionError(f"{spec.name}: a * inv(a) != 1 or inv(0) != 0")
+        log(f"  {spec.name}: mul sqr to_mont from_mont bcast add sub neg inv equal on {n} elements")
+    e = ff.FR.modulus - 2  # the timed inversion is over Fr: square-and-multiply
+    pow_ops = (e.bit_length() - 1) * SQR_INT_OPS + (bin(e).count("1") - 1) * MUL_INT_OPS
+    shape = f"({n}, 8) Fr"
+    rep.record("field_mul", shape, worst["field_mul"], *times["field_mul"], 96 * n, MUL_INT_OPS * n)
+    rep.record("field_add_sub", shape, worst["field_add_sub"], *times["field_add_sub"], 96 * n, 24 * n)
+    rep.record("field_pow", shape, worst["field_pow"], *times["field_pow"], 64 * n, pow_ops * n)
+
+
+def phase_ntt(torch, rep: Report, gen, dev, k_small: int = 16, k_full: int = 20) -> None:
+    from zkevm_tpu_torch.ff import field as ff
+    from zkevm_tpu_torch.ff.field import FR
+    from zkevm_tpu_torch.poly import ntt as nt
+
+    k = k_small
+    a = random_field(torch, FR, 4 << k, gen, dev).reshape(4, 1 << k, 8)
+    for name, kern in (("ntt", lambda: nt.ntt(a)), ("intt", lambda: nt.intt(a)),
+                       ("coset_ntt", lambda: nt.coset_ntt(a, 7))):
+        got = kern()
+        if name == "ntt":
+            want = nt.PLAIN["fft"](a, k, nt._omega_powers(k, False, str(dev)))
+        elif name == "intt":
+            want = nt.PLAIN["fft"](a, k, nt._omega_powers(k, True, str(dev)))
+            want = ff.PLAIN["mul"](FR, want, FR.const(pow(1 << k, FR.modulus - 2, FR.modulus), dev))
+        else:
+            scaled = ff.PLAIN["mul"](FR, a, nt.power_table(7, 1 << k, dev))
+            want = nt.PLAIN["fft"](scaled, k, nt._omega_powers(k, False, str(dev)))
+        check_equal(f"{name} k={k}", max_abs_err(torch, got, want))
+    log(f"  ntt intt coset_ntt equal at k={k}, batch 4")
+    k = k_full
+    x = random_field(torch, FR, 1 << k, gen, dev)
+    if not torch.equal(nt.intt(nt.ntt(x)), x):
+        raise AssertionError(f"intt(ntt(x)) != x at k={k}")
+    tw = nt._omega_powers(k, False, str(dev))
+    got = nt.ntt(x)
+    want, pms = plain_ms_of(torch, lambda: nt.PLAIN["fft"](x, k, tw))
+    err = max_abs_err(torch, got, want)
+    check_equal(f"ntt k={k}", err)
+    log(f"  ntt round trip and plain comparison equal at k={k}")
+    ms = cuda_ms(torch, lambda: nt.ntt(x))
+    n = 1 << k
+    rep.record("ntt", f"({n}, 8) Fr, k={k}", err, ms, pms, 64 * n,
+               k * (n // 2) * (MUL_INT_OPS + 48))
+
+
+def _random_points(torch, count, rng, dev):
+    from zkevm_tpu_torch.ec import goldens as g1g, group
+
+    pts = [g1g.random_point(rng) for _ in range(count)]
+    return pts, group.from_affine_ints(pts, dev)
+
+
+def _random_scalars(count, rng):
+    from zkevm_tpu_torch.ff.goldens import FR_MOD
+
+    return [int.from_bytes(rng.bytes(32), "little") % FR_MOD for _ in range(count)]
+
+
+def phase_curve(torch, rep: Report, rng, dev, m: int = 4096, lanes: int = 256,
+                n_msm: int = 1 << 12) -> None:
+    from zkevm_tpu_torch.ec import goldens as g1g, group, msm as msmmod
+    from zkevm_tpu_torch.ff import field as ff
+
+    # complete addition, with the identity / same / opposite cases
+    _, p = _random_points(torch, m, rng, dev)
+    _, q = _random_points(torch, m, rng, dev)
+    q[0] = p[0]
+    q[1] = group.neg(p[1:2])[0]
+    q[2] = group.identity((), dev)
+    p[3] = group.identity((), dev)
+    got = group.add(p, q)
+    want, pms = plain_ms_of(torch, lambda: group.PLAIN["add"](p, q))
+    if group.to_affine_ints(got) != group.to_affine_ints(want):
+        raise AssertionError("g1_add differs from the plain version")
+    if group.to_affine_ints(got[:1]) != group.to_affine_ints(group.PLAIN["double"](p[:1])):
+        raise AssertionError("g1_add(p, p) != double(p)")
+    ms = cuda_ms(torch, lambda: group.add(p, q))
+    rep.record("g1_add", f"({m}, 3, 8) Fq", 0, ms, pms, 3 * 96 * m, ADD_INT_OPS * m)
+
+    # per-lane scalar multiplication
+    _, bases = _random_points(torch, lanes, rng, dev)
+    ks = _random_scalars(lanes, rng)
+    ks[0], ks[1] = 0, 1
+    sc = ff.to_tensor(ff.words_from_ints(ks), dev)
+    got = group.scalar_mul(bases, sc)
+    want, pms = plain_ms_of(torch, lambda: group.PLAIN["scalar_mul"](bases, sc))
+    if group.to_affine_ints(got) != group.to_affine_ints(want):
+        raise AssertionError("g1_scalar_mul differs from the plain version")
+    ms = cuda_ms(torch, lambda: group.scalar_mul(bases, sc))
+    rep.record("g1_scalar_mul", f"{lanes} lanes", 0, ms, pms, 128 * lanes,
+               scalar_mul_int_ops(torch, sc))
+
+    # MSM at n=64 against the host golden, edge cases included
+    n = 64
+    pts, bases = _random_points(torch, n, rng, dev)
+    ks = _random_scalars(n, rng)
+    ks[0] = 0  # zero scalar
+    bases[1] = group.identity((), dev)  # identity base
+    pts[1] = None
+    bases[5] = bases[4]  # repeated base, same scalar: the doubling case
+    pts[5] = pts[4]
+    ks[5] = ks[4]
+    bases[6] = bases[4]
+    pts[6] = pts[4]
+    got = msmmod.msm(bases, ff.to_tensor(ff.words_from_ints(ks), dev))
+    if group.to_affine_ints(got)[0] != g1g.msm(pts, ks):
+        raise AssertionError("msm differs from the host golden at n=64")
+    log("  msm equals ec/goldens at n=64 (zero scalar, identity base, repeated bases)")
+
+    # MSM at n_msm: random scalars, and 0/1 scalars (one crowded bucket)
+    n = n_msm
+    _, bases = _random_points(torch, n, rng, dev)
+    table = msmmod.group.doubling_table(bases)
+    sc = ff.to_tensor(ff.words_from_ints(_random_scalars(n, rng)), dev)
+    bits = ff.to_tensor(ff.words_from_ints(list(rng.integers(0, 2, n))), dev)
+    for label, s in (("random", sc), ("0/1", bits)):
+        got = msmmod.msm(bases, s)
+        want, pms = plain_ms_of(torch, lambda: msmmod.plain_msm(bases, s, table))
+        if group.to_affine_ints(got) != group.to_affine_ints(want):
+            raise AssertionError(f"msm differs from the plain version at n={n} ({label} scalars)")
+    log(f"  msm equals the plain version at n={n} (random and 0/1 scalars)")
+    ms = cuda_ms(torch, lambda: msmmod.msm(bases, sc))
+    rep.record("msm", f"n={n}, random scalars", 0, ms, pms, 128 * n,
+               msm_int_ops(torch, sc, msmmod.window_bits(n)))
+
+
+def phase_keccak(torch, rep: Report, gen, dev, n: int = 4096) -> None:
+    from zkevm_tpu_torch.hash import keccak as kk
+
+    st = torch.randint(-(1 << 63), (1 << 63) - 1, (n, 25), generator=gen, dtype=torch.int64).to(dev)
+    got = kk.keccak_f(st)
+    want, pms = plain_ms_of(torch, lambda: kk.PLAIN["keccak_f"](st))
+    err = max_abs_err(torch, got, want)
+    check_equal("keccak_f", err)
+    digest = kk.keccak256(b"", dev).hex()
+    if not digest.endswith("a470"):
+        raise AssertionError(f"keccak256(b'') = {digest}")
+    msgs = [bytes(range(256)) * (i % 70) + bytes([i % 256]) * (i % 137) for i in range(64)]
+    blocks, nblk = kk._pack(msgs, dev)
+    if not torch.equal(kk.sponge(blocks, nblk), kk.PLAIN["sponge"](blocks, nblk)):
+        raise AssertionError("keccak sponge differs from the plain version")
+    log(f"  keccak_f equal on {n} states; keccak256(b'') = ...{digest[-4:]}; sponge equal on 64 messages")
+    ms = cuda_ms(torch, lambda: kk.keccak_f(st))
+    rep.record("keccak", f"{n} states", err, ms, pms, 400 * n, 9200 * n)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the toy proofs against the recorded reference proofs
+# ---------------------------------------------------------------------------
+
+def phase_toy(torch, dev) -> None:
+    from zkevm_tpu_torch.circuits import toy
+    from zkevm_tpu_torch.kzg import ParamsKZG
+    from zkevm_tpu_torch.plonk import Assignment, ConstraintSystem, create_proof, keygen, verify_proof
+    from zkevm_tpu_torch.plonk.prover import proof_to_json
+
+    vec = json.loads((ROOT / "tests" / "vectors" / "torch_port_toy_proof.json").read_text())
+    params = ParamsKZG.unsafe_setup(vec["k"], tau=vec["tau"], device=dev)
+    for name in ("toy", "two_phase"):
+        ref = vec[name]
+        if name == "toy":
+            cs, cols = toy.build_toy(ConstraintSystem)
+            witness = toy.assign_toy(cs, cols, Assignment)
+            fixed = toy.fixed_only(cs, witness, Assignment)
+        else:
+            cs, cols = toy.build_two_phase(ConstraintSystem)
+            fixed, witness = toy.two_phase_witness(cs, cols, Assignment)
+        pk = keygen(params, cs, fixed)
+        got_vk = [[list(p) for p in pk.vk.fixed_commitments], [list(p) for p in pk.vk.sigma_commitments]]
+        if got_vk != [ref["fixed_commitments"], ref["sigma_commitments"]]:
+            raise AssertionError(f"{name}: verifying key differs from the reference")
+        proof = create_proof(params, pk, ref["instances"], witness, seed=ref["seed"])
+        got = proof_to_json(proof)
+        bad = [f for f in got if got[f] != ref["proof"][f]]
+        if bad:
+            raise AssertionError(f"{name}: proof fields differ from the reference: {bad}")
+        if not verify_proof(params, pk.vk, ref["instances"], proof):
+            raise AssertionError(f"{name}: the port's verifier rejects the proof")
+        log(f"  {name}: vk and all {len(got)} proof fields equal the reference; verified")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path, KeccakTable at size k
+# ---------------------------------------------------------------------------
+
+MAIN_K = 20  # the reference's inner degree, the size users prove at
+RATE = 136
+EDGE_LENGTHS = [0, 1, 135, 136, 137, 271, 272, 2000]
+
+
+def keccak_messages(rng, nperm: int) -> list[bytes]:
+    """Messages that fill exactly nperm permutations: the padding edges
+    (135 / 136 bytes and their multiples), then lengths spread over
+    0..2000 bytes."""
+    lengths, used = [], 0
+    for ln in EDGE_LENGTHS:
+        if used + ln // RATE + 1 <= nperm:
+            lengths.append(ln)
+            used += ln // RATE + 1
+    while used < nperm:
+        left = nperm - used
+        if left <= 14:
+            ln = (left - 1) * RATE + int(rng.integers(0, 96))
+        else:
+            ln = int(rng.integers(0, 2001))
+            if ln // RATE + 1 > left - 1:
+                continue
+        lengths.append(ln)
+        used += ln // RATE + 1
+    return [rng.bytes(ln) for ln in lengths]
+
+
+def phase_main(torch, dev, seed: int) -> tuple[dict, object, object]:
+    import copy
+
+    from zkevm_tpu_torch import kernels
+    from zkevm_tpu_torch.circuits import keccak_table as kt
+    from zkevm_tpu_torch.circuits.tables import Challenges
+    from zkevm_tpu_torch.hash import keccak as kk
+    from zkevm_tpu_torch.kzg import ParamsKZG
+    from zkevm_tpu_torch.plonk import ConstraintSystem, create_proof, keygen, verify_proof
+
+    times = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        log(f"  {name}: {times[name]:.1f} s")
+        return out
+
+    rng = np.random.default_rng(seed)
+    k = MAIN_K
+    n = 1 << k
+    cs = ConstraintSystem()
+    cfg = kt.configure(cs, Challenges.configure(cs))
+    nperm = kt.num_perms(cs, n)
+    msgs = keccak_messages(rng, nperm)
+    log(f"  KeccakTable k={k}: {len(cs.advice_columns)} advice, {len(cs.fixed_columns)} fixed "
+        f"columns, degree {cs.gate_degree()}; {len(msgs)} messages, {nperm} permutations, "
+        f"{sum(map(len, msgs))} bytes")
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    params = step("unsafe_setup", lambda: ParamsKZG.unsafe_setup(k, device=dev))
+    wit = step("assign", lambda: kt.assign(cs, cfg, n, msgs))
+    pk = step("keygen", lambda: keygen(params, cs, wit.asg))
+    proof = step("create_proof", lambda: create_proof(params, pk, [], wit.witness_phases(), seed=seed))
+    ok = step("verify_proof", lambda: verify_proof(params, pk.vk, [], proof))
+    launches = kernels.launch_counts()
+    log(f"  launches: {json.dumps(launches)}")
+    log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    if not ok:
+        raise AssertionError("verify_proof rejected the KeccakTable proof")
+    bad = copy.deepcopy(proof)
+    bad.evals[0] = (bad.evals[0] + 1) % 21888242871839275222246405745257275088548364400416034343698204186575808495617
+    if verify_proof(params, pk.vk, [], bad):
+        raise AssertionError("verify_proof accepted a proof with a tampered eval")
+    log("  proof verified; tampered eval rejected")
+    # the circuit's host-computed digests against kernel D's keccak256
+    final = [pi for pi in range(nperm) if wit.asg.cols[cfg.is_final][pi * kt.PERM, 0] != 0]
+    want = kk.keccak256_batch(msgs, dev)
+    got = np.stack([wit.digest_bytes[pi].astype(np.uint8) for pi in final[: len(msgs)]])
+    if len(final) != len(msgs) or not np.array_equal(got, want):
+        raise AssertionError("KeccakTable digests differ from keccak256 on the card")
+    log(f"  {len(msgs)} table digests equal keccak256 on the card")
+    missing = [name for name, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    return {"times": times, "launches": launches}, params, pk.vk.domain
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the kernels at the main path's own shapes, against their plain
+# versions. The plain versions need far more memory and time than the
+# kernels, so where a shape is too large for them in one piece they run on
+# slices (rows, lanes, or MSM chunks whose sums are added), and each slice
+# is held to the same slice of the kernel's output of the full call.
+# ---------------------------------------------------------------------------
+
+def plain_powers(torch, base: int, count: int, dev):
+    """(count, 8) Montgomery powers base^i by plain products only (each
+    step doubles the table: t[m:2m] = t[:m] * base^m)."""
+    from zkevm_tpu_torch.ff import field as ff
+    from zkevm_tpu_torch.ff.field import FR
+
+    out = FR.mont_one(dev)[None]
+    while out.shape[0] < count:
+        step = FR.const(pow(base, out.shape[0], FR.modulus), dev)
+        out = torch.cat([out, ff.PLAIN["mul"](FR, out, step)])
+    return out[:count]
+
+
+def plain_sum_lanes(torch, a):
+    """Plain field sum over dim 1 of (rows, w, 8) by a halving tree."""
+    from zkevm_tpu_torch.ff import field as ff
+    from zkevm_tpu_torch.ff.field import FR
+
+    while a.shape[1] > 1:
+        h = a.shape[1] // 2
+        a = ff.PLAIN["add"](FR, a[:, :h], a[:, h:])
+    return a[:, 0]
+
+
+def check_by_rows(torch, what: str, got, plain, rows: int, chunk: int, dim: int = 0) -> float:
+    """Hold got against plain(sl) for every slice sl of ``chunk`` rows of
+    ``dim``; returns the plain version's seconds."""
+    seconds = 0.0
+    for r in range(0, rows, chunk):
+        sl = slice(r, min(rows, r + chunk))
+        want, ms = plain_ms_of(torch, lambda: plain(sl))
+        seconds += ms / 1e3
+        part = got[sl] if dim == 0 else got[:, sl]
+        check_equal(f"{what}, rows {sl.start}..{sl.stop}", max_abs_err(torch, part, want))
+    return seconds
+
+
+def phase_main_shapes(torch, rep: Report, gen, rng, dev, params, domain, *, width: int = 64,
+                      batch: int = 16, row_chunk: int = 1 << 14, lanes_checked: int = 1 << 14,
+                      msm_chunk: int = 1 << 16) -> None:
+    from zkevm_tpu_torch.ec import goldens as g1g, group, msm as msmmod
+    from zkevm_tpu_torch.ff.goldens import fr_root_of_unity
+    from zkevm_tpu_torch.ff import field as ff
+    from zkevm_tpu_torch.ff.field import FR
+    from zkevm_tpu_torch.poly import ntt as nt
+
+    n, k = params.n, params.k
+    main = {}
+
+    def record(name, shape, ms, plain_s, plain_on, nbytes, int_ops):
+        b, by = bound(nbytes, int_ops)
+        main[name] = dict(main_shape=shape, main_shape_max_abs_err=0, main_shape_ms=ms,
+                          main_shape_plain_ms=plain_s * 1e3, main_shape_plain_on=plain_on,
+                          main_shape_bound_ms=b, main_shape_bound_by=by)
+        log(f"  {name:14s} {shape:34s} kernel={ms:.4f} ms plain={plain_s:.2f} s ({plain_on}) "
+            f"bound={b:.4f} ms ({by})")
+
+    # -- field broadcasts of the quotient: (n, W, 8) vector-gate values
+    # against a scalar column (n, 1, 8), the y-power fold (W, 8), a
+    # constant (8,), a rotated copy, the lane sum, and the coset scaling
+    # of the column stack (B, n, 8) x (n, 8)
+    g = random_field(torch, FR, n * width, gen, dev).reshape(n, width, 8)
+    g_rot = torch.roll(g, -1, dims=0)
+    col = random_field(torch, FR, n, gen, dev)
+    colv = col[:, None, :]
+    ypows = random_field(torch, FR, width, gen, dev)
+    const = random_field(torch, FR, 4, gen, dev)[3]
+    mul, add, sub = ff.PLAIN["mul"], ff.PLAIN["add"], ff.PLAIN["sub"]
+    cases = [
+        ("mul (n,W)x(n,W) rotated", lambda: ff.mont_mul(FR, g, g_rot), lambda sl: mul(FR, g[sl], g_rot[sl])),
+        ("mul (n,W)x(n,1)", lambda: ff.mont_mul(FR, g, colv), lambda sl: mul(FR, g[sl], colv[sl])),
+        ("mul (n,W)x(W)", lambda: ff.mont_mul(FR, g, ypows), lambda sl: mul(FR, g[sl], ypows)),
+        ("mul (n,W)x()", lambda: ff.mont_mul(FR, g, const), lambda sl: mul(FR, g[sl], const)),
+        ("add (n,W)+(n,1)", lambda: ff.add(FR, g, colv), lambda sl: add(FR, g[sl], colv[sl])),
+        ("sub (n,1)-(n,W)", lambda: ff.sub(FR, colv, g), lambda sl: sub(FR, colv[sl], g[sl])),
+        ("neg (n,W)", lambda: ff.neg(FR, g), lambda sl: sub(FR, torch.zeros_like(g[sl]), g[sl])),
+        ("sum_rows over W", lambda: ff.sum_rows(FR, g, dim=1), lambda sl: plain_sum_lanes(torch, g[sl])),
+    ]
+    plain_s = {}
+    for what, kern, plain in cases:
+        got = kern()
+        plain_s[what] = check_by_rows(torch, what, got, plain, n, row_chunk)
+        del got
+    log(f"  field ops equal on the quotient's layouts at ({n}, {width}, 8): "
+        + ", ".join(c[0] for c in cases))
+    nel = n * width
+    in_rows = f"all rows, {row_chunk} at a time"
+    record("field_mul", f"({n}, {width}, 8) x ({n}, 1, 8) Fr",
+           cuda_ms(torch, lambda: ff.mont_mul(FR, g, colv), reps=3), plain_s["mul (n,W)x(n,1)"],
+           in_rows, 64 * nel + 32 * n, MUL_INT_OPS * nel)
+    record("field_add_sub", f"({n}, {width}, 8) + ({n}, 1, 8) Fr",
+           cuda_ms(torch, lambda: ff.add(FR, g, colv), reps=3), plain_s["add (n,W)+(n,1)"],
+           in_rows, 64 * nel + 32 * n, 24 * nel)
+    del g, g_rot
+    big = random_field(torch, FR, batch * n, gen, dev).reshape(batch, n, 8)
+    got = ff.mont_mul(FR, big, col)
+    check_by_rows(torch, "mul (B,n)x(n)", got, lambda sl: mul(FR, big[:, sl], col[sl]), n,
+                  row_chunk * width // batch, dim=1)
+    del got
+    log(f"  mul ({batch}, {n}, 8) x ({n}, 8) equal")
+
+    # -- NTT: the batched base-domain transform of the quotient's parts and
+    # its twiddles (a prefix product of kernel A), then the quotient's
+    # division by the vanishing polynomial and its inverse coset transform
+    # on the extended domain
+    tw = plain_powers(torch, fr_root_of_unity(k), n // 2, dev)
+    check_equal(f"twiddles k={k}", max_abs_err(torch, nt._omega_powers(k, False, str(dev)), tw))
+    got = nt.ntt(big, k)
+    want, pms = plain_ms_of(torch, lambda: nt.PLAIN["fft"](big, k, tw))
+    check_equal(f"ntt ({batch}, {n}) batch", max_abs_err(torch, got, want))
+    del got, want
+    record("ntt", f"({batch}, {n}, 8) Fr, k={k}", cuda_ms(torch, lambda: nt.ntt(big, k), reps=3),
+           pms / 1e3, "whole", 64 * batch * n, batch * k * (n // 2) * (MUL_INT_OPS + 48))
+    del big
+    ek, en = domain.extended_k, domain.extended_n
+    h_ext = random_field(torch, FR, en, gen, dev)
+    got_div = domain.divide_by_vanishing_poly(h_ext)
+    period = en // n
+    zh = domain.zh_inv_period(dev)
+    want = mul(FR, h_ext.reshape(n, period, 8), zh).reshape(en, 8)
+    check_equal(f"divide_by_vanishing_poly k={ek}", max_abs_err(torch, got_div, want))
+    del h_ext, want
+    got = domain.extended_to_coeff(got_div)
+    shift_inv = pow(domain.g_coset, FR.modulus - 2, FR.modulus)
+    omega_inv = pow(domain.extended_omega, FR.modulus - 2, FR.modulus)
+    coset = plain_powers(torch, shift_inv, en, dev)
+    check_equal(f"coset powers k={ek}", max_abs_err(torch, nt.power_table(shift_inv, en, dev), coset))
+
+    def plain_extended_to_coeff():
+        a = nt.PLAIN["fft"](got_div, ek, plain_powers(torch, omega_inv, en // 2, dev))
+        a = mul(FR, a, FR.const(pow(en, FR.modulus - 2, FR.modulus), dev))
+        return mul(FR, a, coset)
+
+    want, pms = plain_ms_of(torch, plain_extended_to_coeff)
+    check_equal(f"extended_to_coeff k={ek}", max_abs_err(torch, got, want))
+    del got, got_div, want, coset
+    log(f"  twiddles, ntt ({batch}, {n}, 8), divide_by_vanishing_poly and extended_to_coeff "
+        f"(k={ek}) equal; plain extended_to_coeff {pms / 1e3:.2f} s")
+
+    # -- per-lane scalar multiplication with one base over all n lanes (the
+    # SRS), held on lanes_checked lanes (0, 1 and r - 1 among them)
+    gen_pt = group.from_affine_ints([g1g.G1_GEN], dev)[0]  # the SRS's base
+    sc = random_field(torch, FR, n, gen, dev)
+    got = group.scalar_mul(gen_pt, sc)
+    idx = torch.cat([torch.arange(3), torch.from_numpy(
+        rng.choice(np.arange(3, n), lanes_checked - 3, replace=False))]).to(dev)
+    want, pms = plain_ms_of(torch, lambda: group.PLAIN["scalar_mul"](gen_pt, sc[idx]))
+    if group.to_affine_ints(got[idx]) != group.to_affine_ints(want):
+        raise AssertionError(f"g1_scalar_mul differs from the plain version at {n} lanes")
+    del got, want
+    log(f"  g1_scalar_mul over {n} lanes equals the plain version on {lanes_checked} of them")
+    record("g1_scalar_mul", f"{n} lanes, one base",
+           cuda_ms(torch, lambda: group.scalar_mul(gen_pt, sc), reps=2),
+           pms / 1e3, f"{lanes_checked} of the lanes", 96 + 32 * n + 96 * n,
+           scalar_mul_int_ops(torch, sc))
+
+    # -- g1_add at the first level of the MSM's window-sum tree
+    c = msmmod.window_bits(n)
+    shape = (max(1, (1 << c) // min(1 << c, msmmod.SEGMENT) // 2), -(-256 // c), 3, 8)
+    m = shape[0] * shape[1]
+    pa = params.g1_powers[:m].reshape(shape)
+    pb = torch.roll(params.g1_powers, 1, dims=0)[:m].reshape(shape)
+    got = group.add(pa, pb)
+    if group.to_affine_ints(got) != group.to_affine_ints(group.PLAIN["add"](pa, pb)):
+        raise AssertionError(f"g1_add differs from the plain version at {shape}")
+    log(f"  g1_add equal at {shape}")
+
+    # -- the commit MSM over the SRS: random scalars and 0/1 scalars (one
+    # crowded bucket per window); the plain version sums over msm_chunk-point
+    # chunks so that its doubling table fits
+    bits = (torch.rand(n, generator=gen) < 0.5).to(torch.int32)
+    bits = torch.nn.functional.pad(bits[:, None], (0, 7)).to(dev)
+    scalars = {"random": sc, "0/1": bits}
+    got = {key: params.committer(s) for key, s in scalars.items()}
+    want = {key: group.identity((), dev) for key in scalars}
+    seconds = {"table": 0.0, "random": 0.0, "0/1": 0.0}
+    for start in range(0, n, msm_chunk):
+        sl = slice(start, start + msm_chunk)
+        table, ms = plain_ms_of(torch, lambda: group.doubling_table(params.g1_powers[sl]))
+        seconds["table"] += ms / 1e3
+        for key, s in scalars.items():
+            part, ms = plain_ms_of(torch, lambda: msmmod.plain_msm(params.g1_powers[sl], s[sl], table))
+            seconds[key] += ms / 1e3
+            want[key] = group.PLAIN["add"](want[key], part)
+        del table
+    for key in scalars:
+        if group.to_affine_ints(got[key]) != group.to_affine_ints(want[key]):
+            raise AssertionError(f"msm differs from the plain version at n={n} ({key} scalars)")
+    log(f"  msm equals the plain version at n={n} (random and 0/1 scalars; plain seconds "
+        + json.dumps({key: round(v, 1) for key, v in seconds.items()}) + ")")
+    record("msm", f"n={n}, random scalars", cuda_ms(torch, lambda: params.committer(sc), reps=3),
+           seconds["table"] + seconds["random"], f"{n // msm_chunk} chunks of {msm_chunk} points",
+           128 * n, msm_int_ops(torch, sc, msmmod.window_bits(n)))
+
+    for name, row in main.items():
+        rep.rows[name].update(row)
+
+
+# ---------------------------------------------------------------------------
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=1)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    from zkevm_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    log(card_line())
+    dev = torch.device("cuda")
+
+    t = time.perf_counter()
+    built = kernels.build_all()
+    log(f"phase build: {time.perf_counter() - t:.1f} s " + json.dumps({k: round(v, 1) for k, v in built.items()}))
+
+    rep = Report()
+    gen = torch.Generator().manual_seed(args.seed)
+    rng = np.random.default_rng(args.seed)
+    t = time.perf_counter()
+    phase_field(torch, rep, gen, dev, 1 << 20)
+    phase_ntt(torch, rep, gen, dev)
+    phase_curve(torch, rep, rng, dev)
+    phase_keccak(torch, rep, gen, dev)
+    log(f"phase kernels: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    phase_toy(torch, dev)
+    log(f"phase toy: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    main_path, params, domain = phase_main(torch, dev, args.seed)
+    log(f"phase main: {time.perf_counter() - t:.1f} s")
+    for name, count in main_path["launches"].items():
+        rep.rows[name]["launches"] = count
+
+    t = time.perf_counter()
+    phase_main_shapes(torch, rep, gen, rng, dev, params, domain)
+    log(f"phase main shapes: {time.perf_counter() - t:.1f} s")
+
+    log(f"total: {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"kernels": list(rep.rows.values())}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
