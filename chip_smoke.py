@@ -6,12 +6,17 @@
 Phases, each printing its own lines before the last line:
 
 0. the card's name and power limit (``nvidia-smi``);
-1. build of the hand-written kernels A-D from ``zkevm_tpu_torch/csrc``;
+1. build of the hand-written kernels A-F from ``zkevm_tpu_torch/csrc``;
 2. every kernel against its plain PyTorch version on the card, bit for bit,
-   with timings and bounds;
-3. the K=5 toy proof, field by field against the reference proof recorded
-   in ``tests/vectors/torch_port_toy_proof.json``;
-4. the main path at full size: ``unsafe_setup(20)``, the KeccakTable
+   with timings and bounds (Poseidon E also against the golden model);
+3. the K=5 toy proofs, field by field against the reference proofs
+   recorded in ``tests/vectors/torch_port_toy_proof.json``; then the small
+   state-trie case (MPT circuit over the PoseidonTable, depth 8, k=12)
+   against ``tests/vectors/torch_port_mpt.json``: kernel E against the
+   reference's permute and hash_many, the witness digest, the MockProver's
+   failure lists for the honest and four tampered witnesses, the verifying
+   key and its fingerprint, and the proof under a PoseidonTranscript;
+4. the first main path at full size: ``unsafe_setup(20)``, the KeccakTable
    circuit filled with messages made from ``--seed``, ``keygen``,
    ``create_proof``, ``verify_proof`` (True, and False on a tampered
    eval), with the kernels' launch counts over that path;
@@ -19,7 +24,16 @@ Phases, each printing its own lines before the last line:
    2^20 points, the per-lane scalar multiplication over 2^20 lanes, the
    batched NTT at k=20 and the quotient's transforms at its extended k,
    the quotient's (2^20, 64, 8) field broadcasts), each against its plain
-   version bit for bit, timed beside its bound.
+   version bit for bit, timed beside its bound;
+6. the second main path at full size: the state trie (MPT circuit over the
+   PoseidonTable) at k=20 and trie depth 248: a trie of 16 entries and 32
+   chained updates made from ``--seed``, ``poseidon_states``, the table and
+   MPT assignment, ``MockProver.verify`` ([], and a failure on a forged
+   root), ``unsafe_setup(20)``, ``keygen``, ``create_proof`` and
+   ``verify_proof`` under a PoseidonTranscript (True, and False on a
+   tampered eval), with its own launch counts;
+7. kernels E and F again at the shapes that path gives them (the trace of
+   every table slot, the zero test over the MockProver's largest row set).
 
 Then one JSON line with every kernel's numbers and, last, the ok line.
 Any failure exits non-zero before the ok line. Without CUDA, or without
@@ -47,10 +61,14 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # m*p. A squaring needs only the 36 distinct word products of a*a.
 MUL_INT_OPS = 2 * 64 + 8 + 2 * 64
 SQR_INT_OPS = 2 * 36 + 8 + 2 * 64
+ADD_INT_OPS_FIELD = 24  # one field addition, subtraction or negation (three 8-word passes)
 # G1 formulas in Jacobian coordinates, as products and squarings over Fq:
 ADD_INT_OPS = 11 * MUL_INT_OPS + 5 * SQR_INT_OPS  # add-2007-bl, both inputs Jacobian
 MADD_INT_OPS = 7 * MUL_INT_OPS + 4 * SQR_INT_OPS  # madd-2007-bl, second input affine
 DBL_INT_OPS = 2 * MUL_INT_OPS + 5 * SQR_INT_OPS  # dbl-2009-l
+# One Poseidon permutation (P128Pow5T3): 80 S-boxes (2 squarings and a
+# product each) and 64 MDS applications of 9 products.
+POSEIDON_INT_OPS = 160 * SQR_INT_OPS + 656 * MUL_INT_OPS
 
 
 def log(msg: str) -> None:
@@ -89,6 +107,8 @@ class Report:
         "g1_scalar_mul": ("zkevm_tpu_torch/csrc/curve.cu", "zkevm_tpu/ec/group.py:177"),
         "msm": ("zkevm_tpu_torch/csrc/curve.cu", "zkevm_tpu/ec/psmsm.py:234"),
         "keccak": ("zkevm_tpu_torch/csrc/keccak.cu", "zkevm_tpu/hash/keccak.py:60"),
+        "poseidon": ("zkevm_tpu_torch/csrc/poseidon.cu", "zkevm_tpu/hash/poseidon.py:191"),
+        "field_nonzero": ("zkevm_tpu_torch/csrc/field.cu", "zkevm_tpu/plonk/mock.py:98"),
     }
 
     def __init__(self):
@@ -172,6 +192,156 @@ def plain_ms_of(torch, fn) -> tuple[object, float]:
 
 
 # ---------------------------------------------------------------------------
+# composite kernels: launches and bounds over a main path
+# ---------------------------------------------------------------------------
+
+def _tree_ops(expr, width: int) -> int:
+    """Multiply instructions of one evaluation of a constraint tree per row:
+    each distinct node once (subtrees the tree shares are computed once),
+    vector-valued nodes (below a group query) once per lane."""
+    from zkevm_tpu_torch.plonk import expr as ex
+
+    seen: dict[int, bool] = {}
+    total = 0
+
+    def walk(e) -> bool:
+        nonlocal total
+        if id(e) in seen:
+            return seen[id(e)]
+        if isinstance(e, ex.GroupQuery):
+            vec = True
+        elif isinstance(e, ex.Neg):
+            vec = walk(e.inner)
+            total += ADD_INT_OPS_FIELD * (width if vec else 1)
+        elif isinstance(e, (ex.Sum, ex.Prod)):
+            vec = walk(e.a) | walk(e.b)
+            op = MUL_INT_OPS if isinstance(e, ex.Prod) else ADD_INT_OPS_FIELD
+            total += op * (width if vec and width else 1)
+        else:
+            vec = False
+        seen[id(e)] = vec
+        return vec
+
+    walk(expr)
+    return total
+
+
+class CompositeMeter:
+    """While active, counts the kernel launches of the composite kernels
+    (functions that compose A-C, as the reference composes its limb ops)
+    and adds up, from each call's own inputs, the bytes they must move and
+    the multiply instructions they must issue. A call made inside another
+    composite counts towards the outer one.
+
+    K6 ``Domain`` divide_by_vanishing_poly / coeff_to_extended /
+    extended_to_coeff; K11 the grand products' ``prefix_product``; K12 the
+    quotient's ``_h_part``; K13 ``eval_polys_at`` (its powers table
+    included); K14 SHPLONK ``open_many`` (its MSMs included)."""
+
+    KEYS = ("K6", "K11", "K12", "K13", "K14")
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.launches = {k: 0 for k in self.KEYS}
+        self.nbytes = {k: 0 for k in self.KEYS}
+        self.ops = {k: 0 for k in self.KEYS}
+        self.calls = {k: 0 for k in self.KEYS}
+        self._active = None
+        self._saved = []
+
+    def _wrap(self, key, fn, cost):
+        from zkevm_tpu_torch import kernels
+
+        meter = self
+
+        def wrapped(*args, **kwargs):
+            if meter._active is not None:
+                return fn(*args, **kwargs)
+            meter._active = key
+            before = sum(kernels.launch_counts().values())
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                meter._active = None
+            meter.launches[key] += sum(kernels.launch_counts().values()) - before
+            nbytes, ops = cost(*args)
+            meter.nbytes[key] += nbytes
+            meter.ops[key] += ops
+            meter.calls[key] += 1
+            return out
+
+        return wrapped
+
+    def _patch(self, owner, name, key, cost):
+        fn = getattr(owner, name)
+        self._saved.append((owner, name, fn))
+        setattr(owner, name, self._wrap(key, fn, cost))
+
+    def __enter__(self):
+        from zkevm_tpu_torch.ec import msm as msmmod
+        from zkevm_tpu_torch.plonk import prover as prv, shplonk
+        from zkevm_tpu_torch.poly.domain import Domain
+
+        torch = self.torch
+        ntt_ops = (MUL_INT_OPS + 48) // 2  # per element and stage
+
+        def coset_ntt(dom, a):
+            en = a.shape[-2]
+            return 64 * en, en * (en.bit_length() - 1) * ntt_ops + 2 * en * MUL_INT_OPS
+
+        self._patch(Domain, "divide_by_vanishing_poly", "K6",
+                    lambda dom, a: (64 * a.shape[0], a.shape[0] * MUL_INT_OPS))
+        self._patch(Domain, "extended_to_coeff", "K6", coset_ntt)
+        self._patch(Domain, "coeff_to_extended", "K6", coset_ntt)
+        self._patch(prv, "prefix_product", "K11",
+                    lambda spec, f: (64 * f.shape[0], (f.shape[0] - 1) * MUL_INT_OPS))
+
+        def h_part_cost(protocol, cols_order, part_vals, domain_x, ch_mont, y):
+            n = part_vals.shape[1]
+            per_row = 0
+            for con, width in protocol.constraints:
+                per_row += _tree_ops(con, width)
+                per_row += (width + 1) * MUL_INT_OPS + width * ADD_INT_OPS_FIELD if width else \
+                    MUL_INT_OPS + ADD_INT_OPS_FIELD
+            return 4 * part_vals.numel() + 32 * n, per_row * n
+
+        self._patch(prv, "_h_part", "K12", h_part_cost)
+        self._patch(prv, "eval_polys_at", "K13",
+                    lambda c, x: (4 * c.numel(), c.shape[0] * c.shape[1] * (MUL_INT_OPS + ADD_INT_OPS_FIELD)
+                                  + c.shape[1] * MUL_INT_OPS))
+
+        def open_many_cost(params, domain, queries, transcript):
+            polys = {id(q[1]): q[1] for q in queries}
+            return sum(4 * t.numel() for t in polys.values()), 0
+
+        self._patch(shplonk, "open_many", "K14", open_many_cost)
+        call = msmmod.MSM.__call__
+        meter = self
+
+        def msm_call(msm_self, scalars):
+            if meter._active == "K14":
+                meter.ops["K14"] += msm_int_ops(torch, scalars, msmmod.window_bits(scalars.shape[0]))
+            return call(msm_self, scalars)
+
+        self._saved.append((msmmod.MSM, "__call__", call))
+        msmmod.MSM.__call__ = msm_call
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved = []
+        return False
+
+    def summary(self) -> dict:
+        out = {}
+        for k in self.KEYS:
+            b, by = bound(self.nbytes[k], self.ops[k])
+            out[k] = {"calls": self.calls[k], "launches": self.launches[k], "bound_ms": b, "bound_by": by}
+        return out
+
+
+# ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -234,7 +404,8 @@ def phase_field(torch, rep: Report, gen, dev, n: int) -> None:
     pow_ops = (e.bit_length() - 1) * SQR_INT_OPS + (bin(e).count("1") - 1) * MUL_INT_OPS
     shape = f"({n}, 8) Fr"
     rep.record("field_mul", shape, worst["field_mul"], *times["field_mul"], 96 * n, MUL_INT_OPS * n)
-    rep.record("field_add_sub", shape, worst["field_add_sub"], *times["field_add_sub"], 96 * n, 24 * n)
+    rep.record("field_add_sub", shape, worst["field_add_sub"], *times["field_add_sub"], 96 * n,
+               ADD_INT_OPS_FIELD * n)
     rep.record("field_pow", shape, worst["field_pow"], *times["field_pow"], 64 * n, pow_ops * n)
 
 
@@ -375,6 +546,77 @@ def phase_keccak(torch, rep: Report, gen, dev, n: int = 4096) -> None:
     rep.record("keccak", f"{n} states", err, ms, pms, 400 * n, 9200 * n)
 
 
+def _encode_states(torch, rows, dev):
+    """Lists of field ints -> (len(rows), width, 8) Montgomery tensor."""
+    from zkevm_tpu_torch.ff import field as ff
+    from zkevm_tpu_torch.ff.field import FR
+
+    width = len(rows[0]) if rows else 3
+    words = FR.encode_many([v for r in rows for v in r]).reshape(len(rows), width, 8)
+    return ff.to_tensor(words, dev)
+
+
+def phase_poseidon(torch, rep: Report, gen, dev, n: int = 1 << 14, n_golden: int = 64) -> None:
+    from zkevm_tpu_torch.ff.field import FR
+    from zkevm_tpu_torch.hash import poseidon as pos
+
+    spec = pos.P128_POW5_T3
+    p = FR.modulus
+    st = random_field(torch, FR, 3 * n, gen, dev).reshape(n, 3, 8)
+    st[:4] = _encode_states(torch, [[0, 1, p - 1], [0, 0, 0], [1, 1, 1], [p - 1] * 3], dev)
+    got = pos.permute(spec, st)
+    want, pms = plain_ms_of(torch, lambda: pos.PLAIN["permute"](spec, st))
+    err = max_abs_err(torch, got, want)
+    check_equal("poseidon permute", err)
+    golden = [pos.permute_golden(spec, s) for s in
+              (FR.decode_many(st[i]) for i in range(n_golden))]
+    if [FR.decode_many(got[i]) for i in range(n_golden)] != golden:
+        raise AssertionError("poseidon permute differs from permute_golden")
+    tr = pos.permute_trace(spec, st)
+    check_equal("poseidon trace", max_abs_err(torch, tr, pos.PLAIN["trace"](spec, st)))
+    if not torch.equal(tr[:, :, -1].permute(1, 0, 2), got):
+        raise AssertionError("poseidon trace does not end in the permutation's output")
+    for length in (2, 5):
+        msgs = random_field(torch, FR, n * length, gen, dev).reshape(n, length, 8)
+        check_equal(f"poseidon hash_many L={length}",
+                    max_abs_err(torch, pos.hash_many(spec, msgs), pos.PLAIN["hash_many"](spec, msgs)))
+    log(f"  poseidon permute, trace and hash_many (L=2, 5) equal on {n} states; "
+        f"permute equals permute_golden on {n_golden}")
+    ms = cuda_ms(torch, lambda: pos.permute(spec, st))
+    rep.record("poseidon", f"{n} states, permute", err, ms, pms, 192 * n, POSEIDON_INT_OPS * n)
+
+
+def random_words_with_zeros(torch, shape, gen, dev):
+    """(*shape, 8) int32 words: every third element zero, every seventh
+    with one non-zero word, the rest random."""
+    x = torch.randint(-(1 << 31), (1 << 31) - 1, (*shape, 8), generator=gen, dtype=torch.int64)
+    flat = x.view(-1, 8)
+    flat[0::3] = 0
+    flat[1::7] = 0
+    flat[1::7, 5] = 1
+    return x.to(torch.int32).to(dev)
+
+
+def phase_nonzero(torch, rep: Report, gen, dev) -> None:
+    from zkevm_tpu_torch.ff import field as ff
+
+    timed = None
+    for shape in ((1 << 20,), (1 << 16, 64)):
+        x = random_words_with_zeros(torch, shape, gen, dev)
+        got = ff.nonzero(x)
+        want, pms = plain_ms_of(torch, lambda: ff.PLAIN["nonzero"](x))
+        err = max_abs_err(torch, got, want)
+        check_equal(f"nonzero {shape}", err)
+        if timed is None:
+            timed = (x, err, pms)
+    log("  nonzero equal at (1048576, 8) and (65536, 64, 8)")
+    x, err, pms = timed
+    n = x.shape[0]
+    ms = cuda_ms(torch, lambda: ff.nonzero(x))
+    lib = cuda_ms(torch, lambda: (x != 0).any(-1))
+    rep.record("field_nonzero", f"({n}, 8) words", err, ms, pms, 33 * n, 0, library_ms=lib)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the toy proofs against the recorded reference proofs
 # ---------------------------------------------------------------------------
@@ -410,11 +652,82 @@ def phase_toy(torch, dev) -> None:
         log(f"  {name}: vk and all {len(got)} proof fields equal the reference; verified")
 
 
+def copy_assignment(asg):
+    from zkevm_tpu_torch.plonk import Assignment
+
+    out = Assignment(asg.cs, asg.n)
+    out.cols = {c: a.copy() for c, a in asg.cols.items()}
+    return out
+
+
+def phase_mpt_small(torch, dev) -> None:
+    from zkevm_tpu_torch.circuits import mpt_circuit as mpt, mpt_small as ms, poseidon_table as pt
+    from zkevm_tpu_torch.ff.field import FR
+    from zkevm_tpu_torch.hash import poseidon as pos
+    from zkevm_tpu_torch.kzg import ParamsKZG
+    from zkevm_tpu_torch.plonk import (Assignment, ConstraintSystem, MockProver, create_proof, keygen,
+                                       verify_proof)
+    from zkevm_tpu_torch.plonk.prover import proof_to_json
+    from zkevm_tpu_torch.prover import vk_fingerprint
+    from zkevm_tpu_torch.state import ZkTrie
+    from zkevm_tpu_torch.transcript import PoseidonTranscript
+
+    vec = json.loads((ROOT / "tests" / "vectors" / "torch_port_mpt.json").read_text())
+    spec = pos.P128_POW5_T3
+    ref = vec["poseidon"]
+    got = pos.permute(spec, _encode_states(torch, ref["states"], dev))
+    if [FR.decode_many(s) for s in got] != ref["permute"]:
+        raise AssertionError("kernel E's permute differs from the reference's")
+    for length, msgs in ref["messages"].items():
+        if FR.decode_many(pos.hash_many(spec, _encode_states(torch, msgs, dev))) != ref["hash_many"][length]:
+            raise AssertionError(f"kernel E's hash_many (L={length}) differs from the reference's")
+    log(f"  poseidon permute ({len(ref['states'])} states) and hash_many "
+        f"(L={', '.join(ref['messages'])}) equal the reference's")
+
+    cs, ptcfg, mcfg = ms.build(ConstraintSystem, pt, mpt)
+    ups = ms.updates(ZkTrie, mpt)
+    if [[u.root_old, u.root_new] for u in ups] != vec["roots"] or [u.kh for u in ups] != vec["key_hashes"]:
+        raise AssertionError("trie roots or key hashes differ from the reference's")
+    asg = Assignment(cs, ms.N)
+    pt.assign(cs, ptcfg, ms.N, mpt.poseidon_states(ups, ms.DEPTH, device=dev), asg, device=dev)
+    mpt.assign(cs, mcfg, ms.N, ups, asg, device=dev)
+    if asg.digest() != vec["witness_digest"]:
+        raise AssertionError("the MPT witness differs from the reference's")
+    mock = {"honest": ms.failures_to_json(MockProver(cs, asg, device=dev).verify())}
+    for name, tamper in ms.TAMPERS.items():
+        bad = copy_assignment(asg)
+        tamper(bad, mcfg, ms.DEPTH)
+        mock[name] = ms.failures_to_json(MockProver(cs, bad, device=dev).verify())
+    for name, want in vec["mock"].items():
+        if mock[name] != want:
+            raise AssertionError(f"MockProver on the {name} witness: {mock[name]} != reference {want}")
+    log(f"  depth {ms.DEPTH}, k={ms.K}: witness digest and MockProver failure lists "
+        f"({', '.join(f'{k}: {len(v)}' for k, v in mock.items())}) equal the reference's")
+
+    params = ParamsKZG.unsafe_setup(ms.K, tau=vec["tau"], device=dev)
+    pk = keygen(params, cs, asg)
+    if [list(p) for p in pk.vk.fixed_commitments] != vec["fixed_commitments"]:
+        raise AssertionError("MPT verifying key differs from the reference's")
+    if vk_fingerprint(pk.vk) != vec["vk_fingerprint"]:
+        raise AssertionError("MPT vk_fingerprint differs from the reference's")
+    proof = create_proof(params, pk, [], asg, seed=vec["seed"], transcript=PoseidonTranscript())
+    got = proof_to_json(proof)
+    bad = [f for f in got if got[f] != vec["proof"][f]]
+    if bad:
+        raise AssertionError(f"MPT proof fields differ from the reference: {bad}")
+    if not verify_proof(params, pk.vk, [], proof, transcript=PoseidonTranscript()):
+        raise AssertionError("the port's verifier rejects the MPT proof")
+    log(f"  vk, vk_fingerprint and all {len(got)} proof fields (PoseidonTranscript) equal "
+        "the reference; verified")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path, KeccakTable at size k
 # ---------------------------------------------------------------------------
 
 MAIN_K = 20  # the reference's inner degree, the size users prove at
+KECCAK_PATH_KERNELS = ("field_mul", "field_add_sub", "field_pow", "ntt", "g1_add",
+                       "g1_scalar_mul", "msm", "keccak")
 RATE = 136
 EDGE_LENGTHS = [0, 1, 135, 136, 137, 271, 272, 2000]
 
@@ -475,13 +788,15 @@ def phase_main(torch, dev, seed: int) -> tuple[dict, object, object]:
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    params = step("unsafe_setup", lambda: ParamsKZG.unsafe_setup(k, device=dev))
-    wit = step("assign", lambda: kt.assign(cs, cfg, n, msgs))
-    pk = step("keygen", lambda: keygen(params, cs, wit.asg))
-    proof = step("create_proof", lambda: create_proof(params, pk, [], wit.witness_phases(), seed=seed))
-    ok = step("verify_proof", lambda: verify_proof(params, pk.vk, [], proof))
+    with CompositeMeter(torch) as meter:
+        params = step("unsafe_setup", lambda: ParamsKZG.unsafe_setup(k, device=dev))
+        wit = step("assign", lambda: kt.assign(cs, cfg, n, msgs))
+        pk = step("keygen", lambda: keygen(params, cs, wit.asg))
+        proof = step("create_proof", lambda: create_proof(params, pk, [], wit.witness_phases(), seed=seed))
+        ok = step("verify_proof", lambda: verify_proof(params, pk.vk, [], proof))
     launches = kernels.launch_counts()
     log(f"  launches: {json.dumps(launches)}")
+    log(f"  composites: {json.dumps(meter.summary())}")
     log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     if not ok:
         raise AssertionError("verify_proof rejected the KeccakTable proof")
@@ -497,10 +812,10 @@ def phase_main(torch, dev, seed: int) -> tuple[dict, object, object]:
     if len(final) != len(msgs) or not np.array_equal(got, want):
         raise AssertionError("KeccakTable digests differ from keccak256 on the card")
     log(f"  {len(msgs)} table digests equal keccak256 on the card")
-    missing = [name for name, c in launches.items() if c == 0]
+    missing = [name for name in KECCAK_PATH_KERNELS if launches[name] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
-    return {"times": times, "launches": launches}, params, pk.vk.domain
+        raise AssertionError(f"kernels never launched on the KeccakTable path: {missing}")
+    return {"times": times, "launches": launches, "composites": meter.summary()}, params, pk.vk.domain
 
 
 # ---------------------------------------------------------------------------
@@ -548,6 +863,18 @@ def check_by_rows(torch, what: str, got, plain, rows: int, chunk: int, dim: int 
     return seconds
 
 
+def main_shape_entry(name, shape, ms, plain_s, plain_on, nbytes, int_ops, library_ms=None) -> dict:
+    """The main-shape fields of a kernel's record (the kernel was held to
+    its plain version there, bit for bit)."""
+    b, by = bound(nbytes, int_ops)
+    lib = "" if library_ms is None else f" library={library_ms:.4f} ms"
+    log(f"  {name:14s} {shape:34s} kernel={ms:.4f} ms plain={plain_s:.2f} s ({plain_on}) "
+        f"bound={b:.4f} ms ({by}){lib}")
+    return dict(main_shape=shape, main_shape_max_abs_err=0, main_shape_ms=ms,
+                main_shape_plain_ms=plain_s * 1e3, main_shape_plain_on=plain_on,
+                main_shape_bound_ms=b, main_shape_bound_by=by, main_shape_library_ms=library_ms)
+
+
 def phase_main_shapes(torch, rep: Report, gen, rng, dev, params, domain, *, width: int = 64,
                       batch: int = 16, row_chunk: int = 1 << 14, lanes_checked: int = 1 << 14,
                       msm_chunk: int = 1 << 16) -> None:
@@ -560,13 +887,8 @@ def phase_main_shapes(torch, rep: Report, gen, rng, dev, params, domain, *, widt
     n, k = params.n, params.k
     main = {}
 
-    def record(name, shape, ms, plain_s, plain_on, nbytes, int_ops):
-        b, by = bound(nbytes, int_ops)
-        main[name] = dict(main_shape=shape, main_shape_max_abs_err=0, main_shape_ms=ms,
-                          main_shape_plain_ms=plain_s * 1e3, main_shape_plain_on=plain_on,
-                          main_shape_bound_ms=b, main_shape_bound_by=by)
-        log(f"  {name:14s} {shape:34s} kernel={ms:.4f} ms plain={plain_s:.2f} s ({plain_on}) "
-            f"bound={b:.4f} ms ({by})")
+    def record(name, *args):
+        main[name] = main_shape_entry(name, *args)
 
     # -- field broadcasts of the quotient: (n, W, 8) vector-gate values
     # against a scalar column (n, 1, 8), the y-power fold (W, 8), a
@@ -603,7 +925,7 @@ def phase_main_shapes(torch, rep: Report, gen, rng, dev, params, domain, *, widt
            in_rows, 64 * nel + 32 * n, MUL_INT_OPS * nel)
     record("field_add_sub", f"({n}, {width}, 8) + ({n}, 1, 8) Fr",
            cuda_ms(torch, lambda: ff.add(FR, g, colv), reps=3), plain_s["add (n,W)+(n,1)"],
-           in_rows, 64 * nel + 32 * n, 24 * nel)
+           in_rows, 64 * nel + 32 * n, ADD_INT_OPS_FIELD * nel)
     del g, g_rot
     big = random_field(torch, FR, batch * n, gen, dev).reshape(batch, n, 8)
     got = ff.mont_mul(FR, big, col)
@@ -710,6 +1032,187 @@ def phase_main_shapes(torch, rep: Report, gen, rng, dev, params, domain, *, widt
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the second main path, the state trie (MPT circuit over the
+# PoseidonTable) at size k and trie depth MPT_DEPTH
+# ---------------------------------------------------------------------------
+
+MPT_DEPTH = 248  # the reference's trie depth (state/zktrie.py)
+MPT_PREFILL = 16
+MPT_UPDATES = 32  # 16 inserts and 16 updates: 16,000 of the 16,131 table slots at k=20
+MPT_PATH_KERNELS = ("field_mul", "field_add_sub", "field_pow", "field_nonzero", "ntt",
+                    "g1_scalar_mul", "msm", "poseidon")
+
+
+def mpt_workload(rng, trie, mpt, n_prefill: int, n_updates: int) -> list:
+    """Pre-fill ``trie`` with n_prefill entries, then apply n_updates
+    chained updates, inserts of new keys and updates of pre-filled keys in
+    turn. Keys (k0, k1) are random field elements, values (lo, hi) random
+    128-bit integers."""
+    from zkevm_tpu_torch.ff.goldens import FR_MOD
+
+    def key():
+        return [int.from_bytes(rng.bytes(32), "little") % FR_MOD for _ in range(2)]
+
+    def value():
+        return [int.from_bytes(rng.bytes(16), "little") for _ in range(2)]
+
+    prefilled = [key() for _ in range(n_prefill)]
+    for k in prefilled:
+        trie.update(k, value())
+    ups = []
+    for i in range(n_updates):
+        k = key() if i % 2 == 0 else prefilled[i // 2]
+        ups.append(mpt.apply_update(trie, k[0], k[1], *value()))
+    for a, b in zip(ups, ups[1:]):
+        if a.root_new != b.root_old:
+            raise AssertionError("updates are not chained")
+    return ups
+
+
+def mock_row_counts(cs, asg) -> list[int]:
+    """Rows the MockProver evaluates for each gate polynomial (padded to a
+    power of two where selectors restrict it, all n otherwise)."""
+    from zkevm_tpu_torch.plonk.mock import _peel_selectors
+
+    counts = []
+    for gate in cs.gates:
+        for poly in gate.polys:
+            sels, _ = _peel_selectors(poly)
+            if not sels:
+                counts.append(asg.n)
+                continue
+            mask = np.ones(asg.n, bool)
+            for sq in sels:
+                mask &= np.roll(np.any(asg.cols[sq.column] != 0, axis=1), -sq.rotation)
+            rows = int(mask.sum())
+            counts.append(1 << max(rows - 1, 0).bit_length() if rows else 0)
+    return counts
+
+
+def phase_mpt_main(torch, dev, seed: int) -> tuple[dict, list, int, int]:
+    import copy
+
+    from zkevm_tpu_torch import kernels
+    from zkevm_tpu_torch.circuits import mpt_circuit as mpt, mpt_small as ms, poseidon_table as pt
+    from zkevm_tpu_torch.kzg import ParamsKZG
+    from zkevm_tpu_torch.plonk import (Assignment, ConstraintSystem, MockProver, create_proof, keygen,
+                                       verify_proof)
+    from zkevm_tpu_torch.plonk import prover as prv
+    from zkevm_tpu_torch.state import ZkTrie
+    from zkevm_tpu_torch.transcript import PoseidonTranscript
+
+    times = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        log(f"  {name}: {times[name]:.1f} s")
+        return out
+
+    rng = np.random.default_rng(seed)
+    k, depth = MAIN_K, MPT_DEPTH
+    n = 1 << k
+    cs, ptcfg, mcfg = ms.build(ConstraintSystem, pt, mpt, depth=depth)
+    slots = pt.capacity(cs, n)
+    log(f"  MPT over PoseidonTable k={k}, depth {depth}: {len(cs.advice_columns)} advice, "
+        f"{len(cs.fixed_columns)} fixed columns, {len(cs.gates)} gates, {len(cs.lookups)} lookups, "
+        f"degree {cs.gate_degree()}; {MPT_PREFILL} entries, {MPT_UPDATES} chained updates; "
+        f"{slots} table slots, {mpt.capacity(cs, n, depth)} update regions")
+
+    # the lookup argument's host sort, timed per lookup
+    lookup_s = []
+    permute_lookup = prv._permute_lookup
+
+    def timed_permute_lookup(*args):
+        t = time.perf_counter()
+        out = permute_lookup(*args)
+        lookup_s.append(time.perf_counter() - t)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with CompositeMeter(torch) as meter:
+        ups = step("trie", lambda: mpt_workload(rng, ZkTrie(depth=depth), mpt, MPT_PREFILL, MPT_UPDATES))
+        states = step("poseidon_states", lambda: mpt.poseidon_states(ups, depth, device=dev))
+        if len(states) > slots:
+            raise AssertionError(f"{len(states)} permutations > {slots} table slots")
+        asg = Assignment(cs, n)
+        step("table", lambda: pt.assign(cs, ptcfg, n, states, asg, device=dev))
+        step("mpt_assign", lambda: mpt.assign(cs, mcfg, n, ups, asg, device=dev))
+        failures = step("mock_prover", lambda: MockProver(cs, asg, device=dev).verify())
+        params = step("unsafe_setup", lambda: ParamsKZG.unsafe_setup(k, device=dev))
+        pk = step("keygen", lambda: keygen(params, cs, asg))
+        prv._permute_lookup = timed_permute_lookup
+        try:
+            proof = step("create_proof", lambda: create_proof(params, pk, [], asg, seed=seed,
+                                                              transcript=PoseidonTranscript()))
+        finally:
+            prv._permute_lookup = permute_lookup
+        ok = step("verify_proof", lambda: verify_proof(params, pk.vk, [], proof,
+                                                       transcript=PoseidonTranscript()))
+    launches = kernels.launch_counts()
+    log(f"  launches: {json.dumps(launches)}")
+    log(f"  composites: {json.dumps(meter.summary())}")
+    log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log(f"  {len(states)} permutations in {slots} slots; lookup permutation host seconds: "
+        + json.dumps([round(v, 2) for v in lookup_s]))
+    if failures:
+        raise AssertionError(f"MockProver failures on the honest witness: {failures[:8]}")
+    if not ok:
+        raise AssertionError("verify_proof rejected the MPT proof")
+    bad = copy.deepcopy(proof)
+    bad.evals[0] = (bad.evals[0] + 1) % 21888242871839275222246405745257275088548364400416034343698204186575808495617
+    if verify_proof(params, pk.vk, [], bad, transcript=PoseidonTranscript()):
+        raise AssertionError("verify_proof accepted an MPT proof with a tampered eval")
+    forged = copy_assignment(asg)
+    row = depth - 1  # root row of the first update
+    forged.set_int(mcfg.root_new, row, forged.get_int(mcfg.root_new, row) ^ 1)
+    forged_failures = MockProver(cs, forged, device=dev).verify()
+    if not forged_failures:
+        raise AssertionError("MockProver accepted a forged root")
+    log(f"  MockProver: [] on the witness, {forged_failures} on a forged root; proof verified, "
+        "tampered eval rejected")
+    missing = [name for name in MPT_PATH_KERNELS if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the MPT path: {missing}")
+    return ({"times": times, "launches": launches, "composites": meter.summary()}, states, slots,
+            max(mock_row_counts(cs, asg)))
+
+
+def phase_mpt_shapes(torch, rep: Report, gen, dev, states: list, slots: int, mock_rows: int,
+                     plain_slots: int = 1 << 10) -> None:
+    """Kernel E's trace of every table slot and kernel F over the
+    MockProver's largest row set, each held to its plain version."""
+    from zkevm_tpu_torch.ff import field as ff
+    from zkevm_tpu_torch.hash import poseidon as pos
+
+    spec = pos.P128_POW5_T3
+    init = torch.zeros(slots, 3, 8, dtype=torch.int32, device=dev)
+    init[: len(states)] = _encode_states(torch, states, dev)
+    got = pos.permute_trace(spec, init)
+    want, pms = plain_ms_of(torch, lambda: pos.PLAIN["trace"](spec, init[:plain_slots]))
+    check_equal(f"poseidon trace, slots 0..{plain_slots}", max_abs_err(torch, got[:, :plain_slots], want))
+    del got, want
+    ms = cuda_ms(torch, lambda: pos.permute_trace(spec, init), reps=3)
+    rounds = spec.r_f + spec.r_p
+    rep.rows["poseidon"].update(main_shape_entry(
+        "poseidon", f"trace of {slots} slots", ms, pms / 1e3, f"the first {plain_slots} slots",
+        96 * slots + 96 * (rounds + 1) * slots, POSEIDON_INT_OPS * slots))
+    x = random_words_with_zeros(torch, (mock_rows,), gen, dev)
+    got = ff.nonzero(x)
+    want, pms = plain_ms_of(torch, lambda: ff.PLAIN["nonzero"](x))
+    check_equal(f"nonzero ({mock_rows}, 8)", max_abs_err(torch, got, want))
+    ms = cuda_ms(torch, lambda: ff.nonzero(x))
+    lib = cuda_ms(torch, lambda: (x != 0).any(-1))
+    rep.rows["field_nonzero"].update(main_shape_entry(
+        "field_nonzero", f"({mock_rows}, 8) words", ms, pms / 1e3, "whole", 33 * mock_rows, 0,
+        library_ms=lib))
+
+
+# ---------------------------------------------------------------------------
 
 
 def card_line() -> str:
@@ -748,21 +1251,44 @@ def main(argv=None) -> int:
     phase_ntt(torch, rep, gen, dev)
     phase_curve(torch, rep, rng, dev)
     phase_keccak(torch, rep, gen, dev)
+    phase_poseidon(torch, rep, gen, dev)
+    phase_nonzero(torch, rep, gen, dev)
     log(f"phase kernels: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     phase_toy(torch, dev)
     log(f"phase toy: {time.perf_counter() - t:.1f} s")
-
     t = time.perf_counter()
-    main_path, params, domain = phase_main(torch, dev, args.seed)
+    phase_mpt_small(torch, dev)
+    log(f"phase mpt small: {time.perf_counter() - t:.1f} s")
+
+    paths = {}
+    t = time.perf_counter()
+    keccak_path, params, domain = phase_main(torch, dev, args.seed)
+    paths["keccak_table"] = keccak_path["launches"]
     log(f"phase main: {time.perf_counter() - t:.1f} s")
-    for name, count in main_path["launches"].items():
-        rep.rows[name]["launches"] = count
 
     t = time.perf_counter()
     phase_main_shapes(torch, rep, gen, rng, dev, params, domain)
     log(f"phase main shapes: {time.perf_counter() - t:.1f} s")
+    del params, domain
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    mpt_path, states, slots, mock_rows = phase_mpt_main(torch, dev, args.seed)
+    paths["mpt"] = mpt_path["launches"]
+    log(f"phase mpt main: {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    phase_mpt_shapes(torch, rep, gen, dev, states, slots, mock_rows)
+    log(f"phase mpt main shapes: {time.perf_counter() - t:.1f} s")
+
+    # launches: the sum over the main paths, each counted from zero over
+    # its own run, with the count of each path beside it
+    for name, row in rep.rows.items():
+        row["launches_by_path"] = {path: counts[name] for path, counts in paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
 
     log(f"total: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": list(rep.rows.values())}))

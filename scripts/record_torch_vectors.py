@@ -1,8 +1,9 @@
-"""Record reference proofs from the JAX package for the PyTorch port.
+"""Record reference vectors from the JAX package for the PyTorch port.
 
-Usage: python scripts/record_torch_vectors.py
+Usage: python scripts/record_torch_vectors.py [toy|mpt ...]
 
-Runs ``zkevm_tpu`` on the CPU and writes
+Runs ``zkevm_tpu`` on the CPU and writes two files (both by default).
+
 ``tests/vectors/torch_port_toy_proof.json``: for the K=5 toy circuit of
 ``tests/test_plonk.py`` and for a two-phase toy circuit with one
 challenge (both from ``zkevm_tpu_torch/circuits/toy.py``, built with the
@@ -11,17 +12,37 @@ the verifying key's commitments and every field of the ``Proof``.
 ``chip_smoke.py`` holds the GPU port's proofs against this file (the GPU
 machine has no JAX), and ``tests/port/test_torch_vectors.py`` checks that the
 file still equals what this script produces.
+
+``tests/vectors/torch_port_mpt.json``: the small state-trie case of
+``zkevm_tpu_torch/circuits/mpt_small.py`` (the MPT circuit over the
+PoseidonTable at depth 8, k=12, two chained updates). Its host parts are
+cheap to record again (the trie roots and key hashes, a digest of the
+Poseidon states the lookups need and of the whole witness); the rest is
+not: the JAX ``permute`` and ``hash_many`` on fixed inputs, the
+MockProver's failure lists for the honest witness and the four tampered
+ones, the verifying key and its fingerprint, and the proof under a
+``PoseidonTranscript``. ``inputs_digest`` binds those to the host parts
+they were made from, and ``outputs_digest`` to their recorded values, so
+that ``tests/port/test_torch_vectors.py`` can hold the file to the
+reference by recording the host parts again.
 """
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import json
 import os
 import sys
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent.parent
 OUT = ROOT / "tests" / "vectors" / "torch_port_toy_proof.json"
+MPT_OUT = ROOT / "tests" / "vectors" / "torch_port_mpt.json"
+MPT_HOST_KEYS = ("depth", "k", "roots", "key_hashes", "states_digest", "witness_digest")
+HASH_LENGTHS = (1, 2, 3, 5)
 TAU = 0xDEAD_BEEF_CAFE  # the reference's default unsafe_setup tau
 TOY_SEED = 7
 TWO_PHASE_SEED = 11
@@ -67,13 +88,169 @@ def record() -> dict:
     return out
 
 
-def main() -> int:
+def progress(msg: str) -> None:
+    print(f"record_torch_vectors: {msg}", file=sys.stderr, flush=True)
+
+
+def sha256_json(obj) -> str:
+    return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()).hexdigest()
+
+
+def record_mpt_host():
+    """The reference's host parts of the small state-trie case: -> (the
+    vector's host entries, (cs, PoseidonTable config, MPT config,
+    assignment))."""
+    sys.path.insert(0, str(ROOT))
+    from zkevm_tpu.circuits import mpt_circuit as jmpt, poseidon_table as jpt
+    from zkevm_tpu.plonk import Assignment, ConstraintSystem
+    from zkevm_tpu.state.zktrie import ZkTrie
+    from zkevm_tpu_torch import convert
+    from zkevm_tpu_torch.circuits import mpt_circuit, mpt_small as ms, poseidon_table
+    from zkevm_tpu_torch.plonk import ConstraintSystem as PortConstraintSystem
+
+    cs, ptcfg, mcfg = ms.build(ConstraintSystem, jpt, jmpt)
+    ups = ms.updates(ZkTrie, jmpt)
+    states = jmpt.poseidon_states(ups, ms.DEPTH)
+    asg = Assignment(cs, ms.N)
+    jpt.assign(cs, ptcfg, ms.N, states, asg)
+    jmpt.assign(cs, mcfg, ms.N, ups, asg)
+    port_cs = ms.build(PortConstraintSystem, poseidon_table, mpt_circuit)[0]
+    host = {
+        "depth": ms.DEPTH,
+        "k": ms.K,
+        "roots": [[u.root_old, u.root_new] for u in ups],
+        "key_hashes": [u.kh for u in ups],
+        "states_digest": sha256_json(states),
+        "witness_digest": convert.assignment_from_reference(asg, port_cs).digest(),
+    }
+    return host, (cs, ptcfg, mcfg, asg)
+
+
+def poseidon_inputs():
+    """Fixed inputs of the recorded JAX permute / hash_many outputs: eight
+    states (0, 1 and p - 1 among their elements) and, for each length L in
+    HASH_LENGTHS, four messages."""
+    from zkevm_tpu_torch.ff.goldens import FR_MOD
+
+    rng = np.random.default_rng(19)
+
+    def elems(count):
+        return [int.from_bytes(rng.bytes(32), "little") % FR_MOD for _ in range(count)]
+
+    states = [[0, 0, 0], [1, 2, 3], [FR_MOD - 1, FR_MOD - 1, FR_MOD - 1]]
+    states += [elems(3) for _ in range(5)]
+    msgs = {str(n): [elems(n) for _ in range(4)] for n in HASH_LENGTHS}
+    return states, msgs
+
+
+class _JaxWithoutJit:
+    """``jax`` as the reference prover sees it, with ``jit`` the identity."""
+
+    def __init__(self, jax):
+        self._jax = jax
+
+    def __getattr__(self, name):
+        return self._jax.__getattribute__(name)
+
+    @staticmethod
+    def jit(fn, *args, **kwargs):
+        return fn
+
+
+@contextlib.contextmanager
+def _eager_quotient():
+    """Run the reference prover's quotient (``jax.jit(_h_part)``, one XLA
+    program over every constraint, which XLA:CPU compiles for most of an
+    hour in tens of GB at this circuit's size) op by op: the field ops it
+    calls stay jitted one by one, and integer results do not depend on
+    how the graph is compiled."""
+    from zkevm_tpu.plonk import prover as jprover
+
+    real = jprover.jax
+    jprover.jax = _JaxWithoutJit(real)
+    try:
+        yield
+    finally:
+        jprover.jax = real
+
+
+def record_mpt() -> dict:
+    """The whole MPT vector (slow: the JAX MockProver, keygen and prover)."""
+    sys.path.insert(0, str(ROOT))
+    import jax.numpy as jnp
+
+    from zkevm_tpu.ec.msm import FixedBaseMSM
+    from zkevm_tpu.ff import FR
+    from zkevm_tpu.hash import poseidon as jpos
+    from zkevm_tpu.kzg import ParamsKZG
+    from zkevm_tpu.plonk import MockProver, create_proof, keygen
+    from zkevm_tpu.plonk.verifier import verify_proof
+    from zkevm_tpu.prover.artifacts import vk_fingerprint
+    from zkevm_tpu.transcript import PoseidonTranscript
+    from zkevm_tpu_torch.circuits import mpt_small as ms
+    from zkevm_tpu_torch.plonk.prover import proof_to_json
+
+    host, (cs, ptcfg, mcfg, asg) = record_mpt_host()
+    spec = jpos.P128_POW5_T3
+    states, msgs = poseidon_inputs()
+    enc = np.stack([np.stack([FR.encode(v) for v in s]) for s in states])
+    permuted = np.asarray(jpos.permute(spec, jnp.asarray(enc)))
+    hashes = {}
+    for length, group in msgs.items():
+        m = np.stack([np.stack([FR.encode(v) for v in msg]) for msg in group])
+        hashes[length] = [FR.decode(d) for d in np.asarray(jpos.hash_many(spec, m))]
+
+    progress("MPT: poseidon vectors recorded")
+    mock = {"honest": ms.failures_to_json(MockProver(cs, asg).verify())}
+    for name, tamper in ms.TAMPERS.items():
+        bad = type(asg)(cs, asg.n)
+        bad.cols = {c: a.copy() for c, a in asg.cols.items()}
+        tamper(bad, mcfg, ms.DEPTH)
+        mock[name] = ms.failures_to_json(MockProver(cs, bad).verify())
+
+    progress("MPT: MockProver lists recorded")
+    params = ParamsKZG.unsafe_setup(ms.K, tau=TAU, windowed=False)
+    # above k=10 unsafe_setup picks the prefix-sum MSM, whose c=16 tables
+    # take ~35 GB and most of an hour to compile on the CPU; the windowed
+    # fixed-base engine gives the same commitments at this size
+    params.pippenger, params.committer = None, FixedBaseMSM(params.g1_powers)
+    pk = keygen(params, cs, asg)
+    progress("MPT: keygen done")
+    with _eager_quotient():
+        proof = create_proof(params, pk, [], asg, seed=ms.SEED, transcript=PoseidonTranscript())
+    progress("MPT: proof done")
+    if not verify_proof(params, pk.vk, [], proof, transcript=PoseidonTranscript()):
+        raise RuntimeError("the reference rejects its own MPT proof")
+    outputs = {
+        "poseidon": {
+            "states": states,
+            "permute": [[FR.decode(v) for v in s] for s in permuted],
+            "messages": msgs,
+            "hash_many": hashes,
+        },
+        "mock": mock,
+        "tau": TAU,
+        "seed": ms.SEED,
+        "fixed_commitments": [[int(p[0]), int(p[1])] for p in pk.vk.fixed_commitments],
+        "vk_fingerprint": vk_fingerprint(pk.vk),
+        "proof": proof_to_json(proof),
+    }
+    return {**host, "inputs_digest": sha256_json(host), **outputs,
+            "outputs_digest": sha256_json(outputs)}
+
+
+def main(argv=None) -> int:
+    which = (argv if argv is not None else sys.argv[1:]) or ["toy", "mpt"]
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    OUT.write_text(json.dumps(record(), indent=1) + "\n")
-    print(f"wrote {OUT}")
+    if "toy" in which:
+        OUT.write_text(json.dumps(record(), indent=1) + "\n")
+        print(f"wrote {OUT}")
+    if "mpt" in which:
+        MPT_OUT.write_text(json.dumps(record_mpt(), indent=1) + "\n")
+        print(f"wrote {MPT_OUT}")
     return 0
 
 

@@ -1,17 +1,39 @@
-"""The recorded reference proofs (``tests/vectors/torch_port_toy_proof.json``,
-which the port's tests and ``chip_smoke.py`` compare against) still equal
-what ``scripts/record_torch_vectors.py`` produces from the JAX package."""
+"""The recorded reference vectors, which the port's tests and
+``chip_smoke.py`` compare against, still equal what
+``scripts/record_torch_vectors.py`` produces from the JAX package: the toy
+proofs (``tests/vectors/torch_port_toy_proof.json``) recorded again in full;
+of the state-trie case (``tests/vectors/torch_port_mpt.json``) the host
+parts, recorded again, with the digests that bind the slow parts to them."""
 
 import importlib.util
 import json
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[2]
 
 
-def test_vector_file_is_current():
+@pytest.fixture(scope="module")
+def rec():
     spec = importlib.util.spec_from_file_location(
         "record_torch_vectors", ROOT / "scripts" / "record_torch_vectors.py")
-    rec = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(rec)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_vector_file_is_current(rec):
     assert json.loads(rec.OUT.read_text()) == rec.record()
+
+
+def test_mpt_vector_file_is_current(rec):
+    vec = json.loads(rec.MPT_OUT.read_text())
+    host, _ = rec.record_mpt_host()
+    assert {key: vec[key] for key in rec.MPT_HOST_KEYS} == host
+    assert vec["inputs_digest"] == rec.sha256_json(host)
+    outputs = {key: vec[key] for key in vec
+               if key not in rec.MPT_HOST_KEYS + ("inputs_digest", "outputs_digest")}
+    assert vec["outputs_digest"] == rec.sha256_json(outputs)
+    states, msgs = rec.poseidon_inputs()
+    assert vec["poseidon"]["states"] == states and vec["poseidon"]["messages"] == msgs

@@ -14,6 +14,7 @@ import torch
 
 from zkevm_tpu_torch.ff import field as ff
 from zkevm_tpu_torch.kzg.params import ParamsKZG
+from zkevm_tpu_torch.plonk.assign import Assignment
 
 
 def limbs16_to_words(a, device="cpu") -> torch.Tensor:
@@ -61,8 +62,27 @@ def columns_from_numpy(columns: dict, cs) -> dict:
     return {by_key[(c.kind, c.index, c.phase)]: ff.words_from_limbs16(v) for c, v in columns.items()}
 
 
+def assignment_from_reference(ref_asg, cs) -> Assignment:
+    """A reference ``Assignment`` (numpy (n, 16) limbs per column) -> the
+    port's ``Assignment`` of ``cs`` ((n, 8) words per column)."""
+    asg = Assignment(cs, ref_asg.n)
+    asg.cols.update(columns_from_numpy(ref_asg.cols, cs))
+    return asg
+
+
+def columns_to_reference(asg: Assignment, ref_cs) -> dict:
+    """The port's ``Assignment`` -> {column of the reference's ``ref_cs``:
+    (n, 16) uint32 limbs}, matched by (kind, index, phase): the columns of
+    a reference ``Assignment``."""
+    by_key = {(c.kind, c.index, c.phase): c
+              for c in ref_cs.fixed_columns + ref_cs.advice_columns + ref_cs.instance_columns}
+    return {by_key[(c.kind, c.index, c.phase)]: words_to_limbs16(v) for c, v in asg.cols.items()}
+
+
 __all__ = [
+    "assignment_from_reference",
     "columns_from_numpy",
+    "columns_to_reference",
     "keccak_state_from_lohi",
     "keccak_state_to_lohi",
     "limbs16_to_words",

@@ -13,6 +13,14 @@
 // 16-byte vector loads, all limb loops unrolled into registers, broadcast
 // operands read through stride-0 indexing instead of being materialised.
 // Carry chains use 64-bit accumulators; PTX add-with-carry is later work.
+//
+// Kernel F (zk_field_nonzero): the MockProver's per-row zero test. It
+// replaces the device part of zkevm_tpu/plonk/mock.py MockProver.verify
+// after the gate evaluation (ff.is_zero over (m, [W,] 16) limbs, read back
+// whole): it folds each 8-word element into one byte, 1 where the element
+// is not zero, so the host reads back m (or m * W) flags instead of 32
+// bytes each. Bound by bytes: 32 read and 1 written per element. One
+// thread per element, two 16-byte loads.
 
 #include "field.cuh"
 
@@ -92,6 +100,13 @@ void launch_binary(int op, uint32_t* out, const uint32_t* a, const uint32_t* b, 
   }
 }
 
+__global__ void nonzero_kernel(uint8_t* __restrict__ out, const uint32_t* __restrict__ a, i64 n) {
+  for (i64 i = blockIdx.x * (i64)blockDim.x + threadIdx.x; i < n;
+       i += (i64)gridDim.x * blockDim.x) {
+    out[i] = fe_is_zero(fe_load(a + 8 * i)) ? 0 : 1;
+  }
+}
+
 }  // namespace
 
 // meta: d0, d1, d2, d3, as0..as3, bs0..bs3 (12 values, host memory).
@@ -124,5 +139,14 @@ ZK_EXPORT int zk_field_pow(i64 field, void* out, const void* a, const uint32_t* 
     pow_kernel<FR><<<blocks, threads, 0, s>>>((uint32_t*)out, (const uint32_t*)a, e, n);
   else
     pow_kernel<FQ><<<blocks, threads, 0, s>>>((uint32_t*)out, (const uint32_t*)a, e, n);
+  return (int)cudaGetLastError();
+}
+
+// a: n elements of 8 words; out: n bytes (1 = not zero).
+ZK_EXPORT int zk_field_nonzero(void* out, const void* a, i64 n, void* stream) {
+  if (n == 0) return 0;
+  const int threads = 256;
+  nonzero_kernel<<<zk_blocks(n, threads), threads, 0, (cudaStream_t)stream>>>(
+      (uint8_t*)out, (const uint32_t*)a, n);
   return (int)cudaGetLastError();
 }

@@ -381,6 +381,30 @@ def is_zero(a: torch.Tensor) -> torch.Tensor:
     return (a == 0).all(dim=-1)
 
 
+def _plain_nonzero(a: torch.Tensor) -> torch.Tensor:
+    """(..., 8) words -> (...) bool, True where the element is not zero: the
+    OR of the eight words, as kernel F folds them."""
+    w = a.to(torch.int64)
+    acc = w[..., 0]
+    for i in range(1, W):
+        acc = acc | w[..., i]
+    return acc != 0
+
+
+def nonzero(a: torch.Tensor) -> torch.Tensor:
+    """(..., 8) field elements -> (...) bool flags, True where not zero
+    (kernel F on a CUDA tensor: one byte read back per element)."""
+    if _on_cpu(a):
+        return _plain_nonzero(a)
+    a = a.contiguous()
+    out = torch.empty(a.shape[:-1], dtype=torch.bool, device=a.device)
+    n = out.numel()
+    if n:
+        _check_operand("a", a)
+        kernels.launch("field_nonzero", "field", "zk_field_nonzero", out.data_ptr(), a.data_ptr(), n)
+    return out
+
+
 def sum_rows(spec: FieldSpec, a: torch.Tensor, dim: int) -> torch.Tensor:
     """Field sum along ``dim`` (keeps no dim) by a halving tree of adds,
     padding with zeros (the additive identity) to a power of two."""
@@ -419,4 +443,5 @@ PLAIN = {
     "sub": _plain_sub,
     "mul": _plain_mont_mul,
     "pow": _plain_pow,
+    "nonzero": _plain_nonzero,
 }

@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-LIBRARIES = ("field", "ntt", "curve", "keccak")
+LIBRARIES = ("field", "ntt", "curve", "keccak", "poseidon")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -46,11 +46,13 @@ KERNEL_NAMES = (
     "field_mul",
     "field_add_sub",
     "field_pow",
+    "field_nonzero",
     "ntt",
     "g1_add",
     "g1_scalar_mul",
     "msm",
     "keccak",
+    "poseidon",
 )
 _counts = {name: 0 for name in KERNEL_NAMES}
 _lock = threading.Lock()
@@ -142,6 +144,20 @@ def _function(lib: str, symbol: str, nargs: int):
     return fn
 
 
+def _raise_on(lib: str, symbol: str, err: int) -> None:
+    if err != 0:
+        msg = _function(lib, "zk_error_string", 1)
+        msg.restype = ctypes.c_char_p
+        raise RuntimeError(f"{symbol}: CUDA error {err}: {msg(err).decode()}")
+
+
+def call(lib: str, symbol: str, *args) -> None:
+    """Call a C entry point that launches no kernel (a copy of constants to
+    the device, say) on the current stream; raises on its error code."""
+    fn = _function(lib, symbol, len(args) + 1)
+    _raise_on(lib, symbol, fn(*args, torch.cuda.current_stream().cuda_stream))
+
+
 def launch(kernel: str, lib: str, symbol: str, *args) -> None:
     """Launch ``symbol`` of library ``lib`` on the current stream.
 
@@ -151,10 +167,7 @@ def launch(kernel: str, lib: str, symbol: str, *args) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     err = fn(*args, stream)
     _counts[kernel] += 1
-    if err != 0:
-        msg = _function(lib, "zk_error_string", 1)
-        msg.restype = ctypes.c_char_p
-        raise RuntimeError(f"{symbol}: CUDA error {err}: {msg(err).decode()}")
+    _raise_on(lib, symbol, err)
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, last: int | None) -> None:

@@ -8,6 +8,8 @@ to the device.
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 
 from zkevm_tpu_torch.ff import field as ff
@@ -33,3 +35,15 @@ class Assignment:
         vals = [int(v) for v in values]
         if vals:
             self.cols[col][start : start + len(vals)] = FR.encode_many(vals)
+
+    # -- getters ---------------------------------------------------------
+    def get_int(self, col: Column, row: int) -> int:
+        return FR.decode(self.cols[col][row])
+
+    def digest(self) -> str:
+        """sha256 of every column's words (little-endian uint32), fixed,
+        advice and instance columns in the constraint system's order."""
+        h = hashlib.sha256()
+        for col in self.cs.fixed_columns + self.cs.advice_columns + self.cs.instance_columns:
+            h.update(np.ascontiguousarray(self.cols[col], dtype="<u4").tobytes())
+        return h.hexdigest()

@@ -209,7 +209,8 @@ class EvalContext:
 
     columns: dict column -> (n, 8) Montgomery tensor (base domain or one
     part of the extended coset); rot_scale: row shift per unit rotation;
-    challenges: list of (8,) Montgomery tensors.
+    challenges: list of (8,) Montgomery tensors. ``set_rows`` restricts
+    evaluation to given rows (the MockProver's selector-peeled path).
     """
 
     def __init__(self, columns: dict, challenges, device, rot_scale: int = 1):
@@ -217,6 +218,9 @@ class EvalContext:
         self.challenges = challenges
         self.device = torch.device(device)
         self.rot_scale = rot_scale
+        first = next(iter(columns.values())) if columns else None
+        self.n = first.shape[0] if first is not None else 1
+        self.rows = None
         self._group_cache: dict = {}
 
     def constant(self, v: int):
@@ -225,8 +229,19 @@ class EvalContext:
     def challenge(self, index: int):
         return self.challenges[index]
 
+    def set_rows(self, rows) -> None:
+        """Restrict evaluation to the given row indices: queries gather rows
+        (rows + rot) mod n instead of rolling whole columns. ``rows = None``
+        lifts the restriction."""
+        self.rows = None if rows is None else torch.as_tensor(rows, dtype=torch.int64).to(self.device)
+
+    def _rows_at(self, rotation: int) -> torch.Tensor:
+        return (self.rows + rotation * self.rot_scale) % self.n
+
     def query(self, column, rotation: int):
         arr = self.columns[column]
+        if self.rows is not None:
+            return arr.index_select(0, self._rows_at(rotation))
         if rotation == 0:
             return arr
         return torch.roll(arr, -rotation * self.rot_scale, dims=0)
@@ -238,11 +253,14 @@ class EvalContext:
         return self._domain_x
 
     def group_query(self, group, rotation: int, roll: int):
-        """-> (n, W, 8) tensor: member columns stacked on dim 1, rolled."""
+        """-> (n, W, 8) tensor (rows restricted: (m, W, 8)): member columns
+        stacked on dim 1, rolled."""
         if group not in self._group_cache:
             self._group_cache[group] = torch.stack([self.columns[c] for c in group.columns], dim=1)
         arr = self._group_cache[group]
-        if rotation:
+        if self.rows is not None:
+            arr = arr.index_select(0, self._rows_at(rotation))
+        elif rotation:
             arr = torch.roll(arr, -rotation * self.rot_scale, dims=0)
         if roll:
             arr = torch.roll(arr, roll, dims=1)

@@ -23,7 +23,7 @@ from zkevm_tpu_torch.plonk.expr import HostEvalContext, host_evaluate
 from zkevm_tpu_torch.plonk.keygen import VerifyingKey
 from zkevm_tpu_torch.plonk.protocol import build_protocol
 from zkevm_tpu_torch.plonk.prover import Proof
-from zkevm_tpu_torch.transcript import KeccakTranscript
+from zkevm_tpu_torch.transcript import KeccakTranscript, PoseidonTranscript
 
 
 def _lagrange_evals_at(x: int, rows, n: int, omega: int) -> dict[int, int]:
@@ -99,7 +99,7 @@ def verify_proof(
     instances: list[list[int]],
     proof: Proof,
     *,
-    transcript: KeccakTranscript | None = None,
+    transcript: KeccakTranscript | PoseidonTranscript | None = None,
 ) -> bool:
     cs = vk.cs
     domain = vk.domain
