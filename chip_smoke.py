@@ -6,9 +6,11 @@
 Phases, each printing its own lines before the last line:
 
 0. the card's name and power limit (``nvidia-smi``);
-1. build of the hand-written kernels A-F from ``zkevm_tpu_torch/csrc``;
+1. build of the hand-written kernels A-H from ``zkevm_tpu_torch/csrc``;
 2. every kernel against its plain PyTorch version on the card, bit for bit,
-   with timings and bounds (Poseidon E also against the golden model);
+   with timings and bounds (Poseidon E also against the golden model; the
+   Pippenger MSM G, unsigned and signed, at 2^12 points with zero scalars,
+   repeated bases and scalars >= 2^255; the opening's kernel H at 2^20);
 3. the K=5 toy proofs, field by field against the reference proofs
    recorded in ``tests/vectors/torch_port_toy_proof.json``; then the small
    state-trie case (MPT circuit over the PoseidonTable, depth 8, k=12)
@@ -33,7 +35,17 @@ Phases, each printing its own lines before the last line:
    ``verify_proof`` under a PoseidonTranscript (True, and False on a
    tampered eval), with its own launch counts;
 7. kernels E and F again at the shapes that path gives them (the trace of
-   every table slot, the zero test over the MockProver's largest row set).
+   every table slot, the zero test over the MockProver's largest row set);
+8. the SRS-file path at k=20 on phase 6's circuit, assignment and seed:
+   ``write_params_file`` of ``unsafe_setup(20)`` (phase 6's tau) into
+   ``build/srs``, a few points of each section against the host goldens,
+   ``load_params_file`` (whose engine is the Pippenger MSM G), ``keygen``
+   (the vk fingerprint equals phase 6's), ``create_proof`` (every field
+   equals phase 6's proof), ``verify_proof`` (True, and False on a tampered
+   eval), ``open_single`` of a 2^20 column at a random z with
+   ``verify_single`` (True, and False for value + 1), with the path's launch
+   counts; then G over the loaded SRS at 2^20 points against its plain
+   version word for word and against C's MSM by affine points.
 
 Then one JSON line with every kernel's numbers and, last, the ok line.
 Any failure exits non-zero before the ok line. Without CUDA, or without
@@ -109,6 +121,8 @@ class Report:
         "keccak": ("zkevm_tpu_torch/csrc/keccak.cu", "zkevm_tpu/hash/keccak.py:60"),
         "poseidon": ("zkevm_tpu_torch/csrc/poseidon.cu", "zkevm_tpu/hash/poseidon.py:191"),
         "field_nonzero": ("zkevm_tpu_torch/csrc/field.cu", "zkevm_tpu/plonk/mock.py:98"),
+        "pippenger": ("zkevm_tpu_torch/csrc/pippenger.cu", "zkevm_tpu/ec/pippenger.py:213"),
+        "kzg_open": ("zkevm_tpu_torch/csrc/kzg.cu", "zkevm_tpu/kzg/params.py:198"),
     }
 
     def __init__(self):
@@ -176,6 +190,34 @@ def msm_int_ops(torch, scalars, c: int) -> int:
     horner_dbl, horner_add = (windows - 1) * c, windows - 1
     return (bucket_adds * MADD_INT_OPS + (running + horner_add) * ADD_INT_OPS
             + horner_dbl * DBL_INT_OPS)
+
+
+def pippenger_int_ops(torch, scalars, c: int, signed: bool, sublanes: int = 1024) -> int:
+    """Multiply instructions of kernel G's work on these (n, 8) scalars with
+    affine bases: a mixed addition per non-zero digit after the first into
+    its (lane, window, bucket), a full addition per further filled lane of
+    each (window, bucket) group in the lane merge, two per bucket for the
+    fold, and Horner's additions and doublings."""
+    from zkevm_tpu_torch.ec import pippenger as pip
+
+    digits = pip.digit_table(scalars, c, 256, signed).abs()
+    wd, nb = digits.shape[1], pip.num_buckets(c, signed)
+    lw = pip.lane_width(digits.shape[0], sublanes)
+    lane = torch.arange(digits.shape[0], device=digits.device) % lw
+    nonzero = int((digits != 0).sum().item())
+    filled = groups = 0
+    for w in range(wd):
+        d = digits[:, w]
+        filled += int((torch.bincount(lane * nb + d, minlength=lw * nb).reshape(lw, nb)[:, 1:] > 0)
+                      .sum().item())
+        groups += int((torch.bincount(d, minlength=nb)[1:] > 0).sum().item())
+    full = filled - groups + 2 * (nb - 1) * wd + wd - 1
+    return (nonzero - filled) * MADD_INT_OPS + full * ADD_INT_OPS + (wd - 1) * c * DBL_INT_OPS
+
+
+# one Montgomery product per factor of f_i * w^i * d_i and of (f_i - f(z)) * d_i,
+# an addition into the sum and a subtraction, per element
+OPEN_INT_OPS = 3 * MUL_INT_OPS + 2 * ADD_INT_OPS_FIELD
 
 
 def max_abs_err(torch, a, b) -> int:
@@ -394,12 +436,17 @@ def phase_field(torch, rep: Report, gen, dev, n: int) -> None:
             if op in ("mul", "add", "inv") and spec.name == "Fr":
                 times[kname] = (cuda_ms(torch, kern), pms)
         inv = ff.inv(spec, a)
+        # a strided view (every other element), as the affine normalisation
+        # of (n, 3, 8) points hands z in
+        check_equal(f"{spec.name} inv of a strided view",
+                    max_abs_err(torch, ff.inv(spec, a.reshape(-1, 2, 8)[:, 1]), inv.reshape(-1, 2, 8)[:, 1]))
         prod = ff.mont_mul(spec, a, inv)
         one = spec.mont_one(dev)
         ok = (prod[3:] == one).all() and (inv[0] == 0).all()
         if not bool(ok):
             raise AssertionError(f"{spec.name}: a * inv(a) != 1 or inv(0) != 0")
-        log(f"  {spec.name}: mul sqr to_mont from_mont bcast add sub neg inv equal on {n} elements")
+        log(f"  {spec.name}: mul sqr to_mont from_mont bcast add sub neg inv (and inv of a strided view) "
+            f"equal on {n} elements")
     e = ff.FR.modulus - 2  # the timed inversion is over Fr: square-and-multiply
     pow_ops = (e.bit_length() - 1) * SQR_INT_OPS + (bin(e).count("1") - 1) * MUL_INT_OPS
     shape = f"({n}, 8) Fr"
@@ -524,6 +571,64 @@ def phase_curve(torch, rep: Report, rng, dev, m: int = 4096, lanes: int = 256,
     ms = cuda_ms(torch, lambda: msmmod.msm(bases, sc))
     rep.record("msm", f"n={n}, random scalars", 0, ms, pms, 128 * n,
                msm_int_ops(torch, sc, msmmod.window_bits(n)))
+
+
+def phase_pippenger(torch, rep: Report, rng, dev, n: int = 1 << 12) -> None:
+    """Kernel G, unsigned and signed at c = 4, against its plain version bit
+    for bit: random 256-bit scalars (half of them >= 2^255), every
+    seventeenth zero, 2^256 - 1 among them, and bases repeated with equal
+    and with other scalars."""
+    from zkevm_tpu_torch.ec import group, msm as msmmod, pippenger as pip
+    from zkevm_tpu_torch.ff import field as ff
+
+    _, bases = _random_points(torch, n, rng, dev)
+    ks = [int.from_bytes(rng.bytes(32), "little") for _ in range(n)]
+    for i in range(0, n, 17):
+        ks[i] = 0
+    ks[3] = (1 << 256) - 1
+    bases[5] = bases[4]
+    ks[5] = ks[4]
+    bases[100:140] = bases[99]
+    sc = ff.to_tensor(ff.words_from_ints(ks), dev)
+    timed = {}
+    for signed in (False, True):
+        got = pip.msm(bases, sc, signed=signed)
+        want, pms = plain_ms_of(torch, lambda: pip.PLAIN["msm"](bases, sc, signed=signed))
+        check_equal(f"pippenger msm (signed={signed})", max_abs_err(torch, got, want))
+        timed[signed] = pms
+    if group.to_affine_ints(got) != group.to_affine_ints(msmmod.msm(bases, sc)):
+        raise AssertionError(f"pippenger msm differs from C's msm at n={n}")
+    log(f"  pippenger msm (c=4, unsigned and signed) equals the plain version at n={n} "
+        f"(zero scalars, scalars >= 2^255, repeated bases) and C's msm")
+    ms = cuda_ms(torch, lambda: pip.msm(bases, sc))
+    rep.record("pippenger", f"n={n}, c=4 unsigned", 0, ms, timed[False], 128 * n + 96,
+               pippenger_int_ops(torch, sc, 4, False))
+    rep.rows["pippenger"]["signed"] = {"ms": cuda_ms(torch, lambda: pip.msm(bases, sc, signed=True)),
+                                       "plain_ms": timed[True]}
+
+
+def phase_kzg_open(torch, rep: Report, gen, rng, dev, k: int = 20) -> None:
+    """Kernel H at the opening's 2^20 shape against its plain version: the
+    value f(z) and the quotient, for a random z and evaluations."""
+    from zkevm_tpu_torch.ff import field as ff
+    from zkevm_tpu_torch.ff.field import FR
+    from zkevm_tpu_torch.ff.goldens import fr_root_of_unity
+    from zkevm_tpu_torch.kzg import params as kp
+    from zkevm_tpu_torch.poly import ntt as nt
+
+    n = 1 << k
+    f = random_field(torch, FR, n, gen, dev)
+    z = int.from_bytes(rng.bytes(32), "little") % FR.modulus
+    xs = nt.power_table(fr_root_of_unity(k), n, dev)
+    d = ff.inv(FR, ff.sub(FR, xs, FR.const(z, dev)))
+    scale = int.from_bytes(rng.bytes(32), "little") % FR.modulus
+    fz, q = kp.open_quotient(f, xs, d, scale)
+    (pfz, pq), pms = plain_ms_of(torch, lambda: kp.PLAIN["open_quotient"](f, xs, d, scale))
+    err = max(max_abs_err(torch, fz, pfz), max_abs_err(torch, q, pq))
+    check_equal("kzg open quotient", err)
+    log(f"  kzg open (value and quotient) equals the plain version at n={n}")
+    ms = cuda_ms(torch, lambda: kp.open_quotient(f, xs, d, scale))
+    rep.record("kzg_open", f"({n}, 8) Fr", err, ms, pms, 128 * n + 32, OPEN_INT_OPS * n)
 
 
 def phase_keccak(torch, rep: Report, gen, dev, n: int = 4096) -> None:
@@ -1037,6 +1142,7 @@ def phase_main_shapes(torch, rep: Report, gen, rng, dev, params, domain, *, widt
 # ---------------------------------------------------------------------------
 
 MPT_DEPTH = 248  # the reference's trie depth (state/zktrie.py)
+SETUP_TAU = 0xDEAD_BEEF_CAFE  # unsafe_setup's default tau
 MPT_PREFILL = 16
 MPT_UPDATES = 32  # 16 inserts and 16 updates: 16,000 of the 16,131 table slots at k=20
 MPT_PATH_KERNELS = ("field_mul", "field_add_sub", "field_pow", "field_nonzero", "ntt",
@@ -1089,7 +1195,7 @@ def mock_row_counts(cs, asg) -> list[int]:
     return counts
 
 
-def phase_mpt_main(torch, dev, seed: int) -> tuple[dict, list, int, int]:
+def phase_mpt_main(torch, dev, seed: int) -> tuple[dict, list, int, int, dict]:
     import copy
 
     from zkevm_tpu_torch import kernels
@@ -1098,6 +1204,8 @@ def phase_mpt_main(torch, dev, seed: int) -> tuple[dict, list, int, int]:
     from zkevm_tpu_torch.plonk import (Assignment, ConstraintSystem, MockProver, create_proof, keygen,
                                        verify_proof)
     from zkevm_tpu_torch.plonk import prover as prv
+    from zkevm_tpu_torch.plonk.prover import proof_to_json
+    from zkevm_tpu_torch.prover import vk_fingerprint
     from zkevm_tpu_torch.state import ZkTrie
     from zkevm_tpu_torch.transcript import PoseidonTranscript
 
@@ -1143,7 +1251,7 @@ def phase_mpt_main(torch, dev, seed: int) -> tuple[dict, list, int, int]:
         step("table", lambda: pt.assign(cs, ptcfg, n, states, asg, device=dev))
         step("mpt_assign", lambda: mpt.assign(cs, mcfg, n, ups, asg, device=dev))
         failures = step("mock_prover", lambda: MockProver(cs, asg, device=dev).verify())
-        params = step("unsafe_setup", lambda: ParamsKZG.unsafe_setup(k, device=dev))
+        params = step("unsafe_setup", lambda: ParamsKZG.unsafe_setup(k, tau=SETUP_TAU, device=dev))
         pk = step("keygen", lambda: keygen(params, cs, asg))
         prv._permute_lookup = timed_permute_lookup
         try:
@@ -1178,8 +1286,9 @@ def phase_mpt_main(torch, dev, seed: int) -> tuple[dict, list, int, int]:
     missing = [name for name in MPT_PATH_KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the MPT path: {missing}")
+    reuse = {"cs": cs, "asg": asg, "vk_fingerprint": vk_fingerprint(pk.vk), "proof": proof_to_json(proof)}
     return ({"times": times, "launches": launches, "composites": meter.summary()}, states, slots,
-            max(mock_row_counts(cs, asg)))
+            max(mock_row_counts(cs, asg)), reuse)
 
 
 def phase_mpt_shapes(torch, rep: Report, gen, dev, states: list, slots: int, mock_rows: int,
@@ -1210,6 +1319,142 @@ def phase_mpt_shapes(torch, rep: Report, gen, dev, states: list, slots: int, moc
     rep.rows["field_nonzero"].update(main_shape_entry(
         "field_nonzero", f"({mock_rows}, 8) words", ms, pms / 1e3, "whole", 33 * mock_rows, 0,
         library_ms=lib))
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the SRS-file path at size k, on phase 6's circuit and assignment
+# ---------------------------------------------------------------------------
+
+SRS_PATH_KERNELS = ("field_mul", "field_add_sub", "field_pow", "ntt", "g1_scalar_mul", "pippenger",
+                    "kzg_open")
+SRS_SPOT = (0, 1, 2, 12345, (1 << MAIN_K) - 1)  # points of each section held to the goldens
+
+
+def _file_point(data: bytes, offset: int):
+    from zkevm_tpu_torch.kzg import srs
+
+    return (srs._fq_unraw(data[offset : offset + 32]), srs._fq_unraw(data[offset + 32 : offset + 64]))
+
+
+def check_srs_file(path, k: int, tau: int) -> None:
+    """The file's size, and the points SRS_SPOT of both sections against
+    [tau^i] G1 and [L_i(tau)] G1 from the host goldens."""
+    from zkevm_tpu_torch.ec import goldens as g1g
+    from zkevm_tpu_torch.ff.goldens import FR_MOD, fr_root_of_unity
+
+    n = 1 << k
+    data = Path(path).read_bytes()
+    if len(data) != 4 + 2 * n * 64 + 256 or int.from_bytes(data[:4], "little") != k:
+        raise AssertionError(f"params file: {len(data)} bytes, k={int.from_bytes(data[:4], 'little')}")
+    omega = fr_root_of_unity(k)
+    zn = (pow(tau, n, FR_MOD) - 1) * pow(n, FR_MOD - 2, FR_MOD) % FR_MOD
+    for i in SRS_SPOT:
+        wi = pow(omega, i, FR_MOD)
+        lag = zn * wi * pow((tau - wi) % FR_MOD, FR_MOD - 2, FR_MOD) % FR_MOD
+        if _file_point(data, 4 + 64 * i) != g1g.scalar_mul(g1g.G1_GEN, pow(tau, i, FR_MOD)):
+            raise AssertionError(f"params file: g1[{i}] != [tau^{i}] G1")
+        if _file_point(data, 4 + 64 * (n + i)) != g1g.scalar_mul(g1g.G1_GEN, lag):
+            raise AssertionError(f"params file: lagrange[{i}] != [L_{i}(tau)] G1")
+    log(f"  {len(data)} bytes; points {list(SRS_SPOT)} of both sections equal the goldens")
+
+
+def phase_srs_file(torch, rep: Report, rng, dev, seed: int, mpt: dict) -> dict:
+    import copy
+
+    from zkevm_tpu_torch import kernels
+    from zkevm_tpu_torch.ec import group, msm as msmmod, pippenger as pip
+    from zkevm_tpu_torch.ff import field as ff
+    from zkevm_tpu_torch.ff.field import FR
+    from zkevm_tpu_torch.kzg import ParamsKZG, open_single, verify_single
+    from zkevm_tpu_torch.kzg.srs import load_params_file, params_path, write_params_file
+    from zkevm_tpu_torch.plonk import create_proof, keygen, verify_proof
+    from zkevm_tpu_torch.plonk.prover import proof_to_json
+    from zkevm_tpu_torch.prover import vk_fingerprint
+    from zkevm_tpu_torch.transcript import PoseidonTranscript
+
+    times = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        log(f"  {name}: {times[name]:.1f} s")
+        return out
+
+    k = MAIN_K
+    n = 1 << k
+    cs, asg = mpt["cs"], mpt["asg"]
+    srs_dir = ROOT / "build" / "srs"
+    srs_dir.mkdir(parents=True, exist_ok=True)
+    path = params_path(str(srs_dir), k)
+    # the fullest advice column, in evaluation form, for the opening
+    fullest = max(cs.advice_columns, key=lambda c: int(np.any(asg.cols[c] != 0, axis=1).sum()))
+    column = ff.to_tensor(asg.cols[fullest], dev)
+    z = int.from_bytes(rng.bytes(32), "little") % FR.modulus
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    setup = step("unsafe_setup", lambda: ParamsKZG.unsafe_setup(k, tau=SETUP_TAU, device=dev))
+    step("write_params_file", lambda: write_params_file(setup, path, tau=SETUP_TAU))
+    del setup
+    params = step("load_params_file", lambda: load_params_file(path, k, device=dev))
+    pk = step("keygen", lambda: keygen(params, cs, asg))
+    proof = step("create_proof", lambda: create_proof(params, pk, [], asg, seed=seed,
+                                                      transcript=PoseidonTranscript()))
+    ok = step("verify_proof", lambda: verify_proof(params, pk.vk, [], proof, transcript=PoseidonTranscript()))
+    commitment = step("commit_lagrange", lambda: params.commit_lagrange(column))
+    value, opening = step("open_single", lambda: open_single(params, column, z))
+    opened = step("verify_single", lambda: verify_single(params, commitment, z, value, opening))
+    launches = kernels.launch_counts()
+    log(f"  launches: {json.dumps(launches)}")
+    log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    check_srs_file(path, k, SETUP_TAU)
+    if not isinstance(params.committer, pip.PippengerMSM):
+        raise AssertionError(f"load_params_file at k={k}: engine {type(params.committer).__name__}")
+    if vk_fingerprint(pk.vk) != mpt["vk_fingerprint"]:
+        raise AssertionError("the file-loaded SRS gives another vk fingerprint than unsafe_setup's")
+    got = proof_to_json(proof)
+    bad_fields = [f for f in got if got[f] != mpt["proof"][f]]
+    if bad_fields:
+        raise AssertionError(f"proof fields differ from phase 6's proof: {bad_fields}")
+    if not ok:
+        raise AssertionError("verify_proof rejected the proof made with the file-loaded SRS")
+    bad = copy.deepcopy(proof)
+    bad.evals[0] = (bad.evals[0] + 1) % FR.modulus
+    if verify_proof(params, pk.vk, [], bad, transcript=PoseidonTranscript()):
+        raise AssertionError("verify_proof accepted a tampered eval (file-loaded SRS)")
+    if not opened or verify_single(params, commitment, z, (value + 1) % FR.modulus, opening):
+        raise AssertionError("verify_single: the opening is rejected, or value + 1 accepted")
+    log(f"  engine PippengerMSM; vk fingerprint and all {len(got)} proof fields equal phase 6's; "
+        "proof verified, tampered eval rejected; open_single verified, value + 1 rejected")
+    missing = [name for name in SRS_PATH_KERNELS if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the SRS-file path: {missing}")
+    if launches["msm"]:
+        raise AssertionError(f"C's msm launched {launches['msm']} times on the SRS-file path")
+
+    # kernel G at the path's own shape (Lw = 1024 lanes of 1024 steps over
+    # the loaded bases): against its plain version word for word, and
+    # against C's MSM over the same bases by affine points
+    sc = ff.to_tensor(ff.words_from_ints([int.from_bytes(rng.bytes(32), "little") % FR.modulus
+                                          for _ in range(n)]), dev)
+    got_g = params.committer(sc)
+    want, pms = plain_ms_of(torch, lambda: pip.PLAIN["msm"](params.g1_powers, sc, c=params.committer.c,
+                                                             sublanes=params.committer.sublanes))
+    check_equal(f"pippenger msm at n={n} (the loaded SRS)", max_abs_err(torch, got_g, want))
+    if group.to_affine_ints(got_g) != group.to_affine_ints(msmmod.MSM(params.g1_powers)(sc)):
+        raise AssertionError(f"pippenger msm differs from C's msm at n={n}")
+    ms = cuda_ms(torch, lambda: params.committer(sc), reps=3)
+    entry = main_shape_entry("pippenger", f"n={n}, c=4 unsigned, the loaded SRS", ms, pms / 1e3, "whole",
+                             128 * n + 96, pippenger_int_ops(torch, sc, params.committer.c, False,
+                                                             params.committer.sublanes))
+    log("  pippenger at the loaded SRS equals its plain version word for word and C's msm (affine)")
+    entry["main_shape_held_to"] = "its plain version, word for word; C's msm, affine"
+    rep.rows["pippenger"].update(entry)
+    return {"times": times, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1253,6 +1498,8 @@ def main(argv=None) -> int:
     phase_keccak(torch, rep, gen, dev)
     phase_poseidon(torch, rep, gen, dev)
     phase_nonzero(torch, rep, gen, dev)
+    phase_pippenger(torch, rep, rng, dev)
+    phase_kzg_open(torch, rep, gen, rng, dev)
     log(f"phase kernels: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
@@ -1275,7 +1522,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
-    mpt_path, states, slots, mock_rows = phase_mpt_main(torch, dev, args.seed)
+    mpt_path, states, slots, mock_rows, mpt_reuse = phase_mpt_main(torch, dev, args.seed)
     paths["mpt"] = mpt_path["launches"]
     log(f"phase mpt main: {time.perf_counter() - t:.1f} s")
     torch.cuda.empty_cache()
@@ -1283,6 +1530,13 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     phase_mpt_shapes(torch, rep, gen, dev, states, slots, mock_rows)
     log(f"phase mpt main shapes: {time.perf_counter() - t:.1f} s")
+    del states
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    srs_path = phase_srs_file(torch, rep, rng, dev, args.seed, mpt_reuse)
+    paths["srs_file"] = srs_path["launches"]
+    log(f"phase srs file: {time.perf_counter() - t:.1f} s")
 
     # launches: the sum over the main paths, each counted from zero over
     # its own run, with the count of each path beside it

@@ -1,8 +1,8 @@
 """Record reference vectors from the JAX package for the PyTorch port.
 
-Usage: python scripts/record_torch_vectors.py [toy|mpt ...]
+Usage: python scripts/record_torch_vectors.py [toy|mpt|kzg ...]
 
-Runs ``zkevm_tpu`` on the CPU and writes two files (both by default).
+Runs ``zkevm_tpu`` on the CPU and writes three files (all by default).
 
 ``tests/vectors/torch_port_toy_proof.json``: for the K=5 toy circuit of
 ``tests/test_plonk.py`` and for a two-phase toy circuit with one
@@ -25,6 +25,17 @@ ones, the verifying key and its fingerprint, and the proof under a
 they were made from, and ``outputs_digest`` to their recorded values, so
 that ``tests/port/test_torch_vectors.py`` can hold the file to the
 reference by recording the host parts again.
+
+``tests/vectors/torch_port_kzg.json``: the SRS-file path and the KZG layer.
+Its inputs are cheap to make again from fixed seeds (the SRS degrees and
+tau; 96 points, among them the identity and a repeated base, and 96 scalars
+with zeros, 2^255, 2^256 - 1 and r - 1; the MSM cases; a K=4 polynomial and
+an opening point); its outputs are the reference's: the bytes of the
+halo2-layout files ``write_params_file`` writes for ``unsafe_setup(k,
+tau=777)`` at k = 4 and 6, the affine results of ``ec/pippenger.py``
+``msm_t`` for each case, and ``open_single``'s value and proof with the
+polynomial's commitment. ``inputs_digest`` and ``outputs_digest`` bind them
+as in the MPT file.
 """
 
 from __future__ import annotations
@@ -42,6 +53,18 @@ ROOT = Path(__file__).resolve().parent.parent
 OUT = ROOT / "tests" / "vectors" / "torch_port_toy_proof.json"
 MPT_OUT = ROOT / "tests" / "vectors" / "torch_port_mpt.json"
 MPT_HOST_KEYS = ("depth", "k", "roots", "key_hashes", "states_digest", "witness_digest")
+KZG_OUT = ROOT / "tests" / "vectors" / "torch_port_kzg.json"
+KZG_HOST_KEYS = ("srs", "msm", "open")
+SRS_TAU = 777  # scripts/gen_srs.py's tau
+SRS_KS = (4, 6)
+MSM_POINTS = 96
+# (n, c, signed, sublanes): every window width and digit kind at n = 64 (one
+# step per lane), and n = 96 with 64 sublanes, where Lw halves to 32
+MSM_CASES = [(64, c, signed, 1024) for c in (3, 4, 5) for signed in (False, True)] + [
+    (96, 4, False, 64), (96, 4, True, 64)]
+OPEN_K = 4
+OPEN_TAU = 0xACE0FBA5E  # tests/test_kzg.py's
+OPEN_Z = 987654321987654321
 HASH_LENGTHS = (1, 2, 3, 5)
 TAU = 0xDEAD_BEEF_CAFE  # the reference's default unsafe_setup tau
 TOY_SEED = 7
@@ -239,8 +262,76 @@ def record_mpt() -> dict:
             "outputs_digest": sha256_json(outputs)}
 
 
+def kzg_inputs() -> dict:
+    """The cheap inputs of the KZG vector, made from fixed seeds."""
+    from zkevm_tpu_torch.ec import goldens as g1g
+    from zkevm_tpu_torch.ff.goldens import FR_MOD
+
+    rng = np.random.default_rng(23)
+    pts = [list(g1g.random_point(rng)) for _ in range(MSM_POINTS)]
+    scalars = [int.from_bytes(rng.bytes(32), "little") for _ in range(MSM_POINTS)]
+    pts[1] = None  # the identity
+    pts[5] = pts[6] = pts[4]  # a repeated base; with an equal scalar, the doubling case
+    scalars[5] = scalars[4]
+    scalars[0] = scalars[70] = 0
+    scalars[7], scalars[8], scalars[9] = (1 << 256) - 1, 1 << 255, FR_MOD - 1
+    coeffs = [int(v) for v in np.random.default_rng(29).integers(0, 1 << 62, 1 << OPEN_K)]
+    return {
+        "srs": {"tau": SRS_TAU, "ks": list(SRS_KS)},
+        "msm": {"points": pts, "scalars": scalars,
+                "cases": [{"n": n, "c": c, "signed": sg, "sublanes": sub} for n, c, sg, sub in MSM_CASES]},
+        "open": {"k": OPEN_K, "tau": OPEN_TAU, "coeffs": coeffs, "z": OPEN_Z},
+    }
+
+
+def record_kzg() -> dict:
+    """The KZG vector: the reference's SRS files, msm_t results and opening
+    (slow: a JAX compile for each MSM geometry)."""
+    import tempfile
+
+    sys.path.insert(0, str(ROOT))
+    from zkevm_tpu.ec import group, group_t
+    from zkevm_tpu.ec.pippenger import msm_t
+    from zkevm_tpu.ff import FR, limbs
+    from zkevm_tpu.kzg import ParamsKZG, open_single
+    from zkevm_tpu.kzg.srs import write_params_file
+    from zkevm_tpu.poly import ntt as nttmod
+
+    def _pt(p):
+        return None if p is None else [int(p[0]), int(p[1])]
+
+    host = kzg_inputs()
+    files = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k in SRS_KS:
+            path = os.path.join(tmp, f"params{k}")
+            write_params_file(ParamsKZG.unsafe_setup(k, tau=SRS_TAU, windowed=False), path, tau=SRS_TAU)
+            files[str(k)] = Path(path).read_bytes().hex()
+    progress("KZG: SRS files recorded")
+    m = host["msm"]
+    results = []
+    for case in m["cases"]:
+        n = case["n"]
+        pts = group_t.from_g1(group.from_affine_ints([None if p is None else tuple(p) for p in m["points"][:n]]))
+        out = msm_t(pts, limbs.limbs_from_ints(m["scalars"][:n]), c=case["c"], sublanes=case["sublanes"],
+                    signed=case["signed"])
+        results.append(_pt(group.to_affine_ints(group_t.to_g1(out))[0]))
+        progress(f"KZG: msm_t {case} recorded")
+    op = host["open"]
+    params = ParamsKZG.unsafe_setup(op["k"], op["tau"])
+    enc = np.stack([FR.encode(c) for c in op["coeffs"]])
+    value, proof = open_single(params, nttmod.ntt(enc, op["k"]), op["z"])
+    outputs = {
+        "srs_files": files,
+        "msm_results": results,
+        "open_result": {"value": int(value), "proof": _pt(group.to_affine_ints(proof)[0]),
+                        "commitment": _pt(group.to_affine_ints(params.commit(enc))[0])},
+    }
+    return {**host, "inputs_digest": sha256_json(host), **outputs, "outputs_digest": sha256_json(outputs)}
+
+
 def main(argv=None) -> int:
-    which = (argv if argv is not None else sys.argv[1:]) or ["toy", "mpt"]
+    which = (argv if argv is not None else sys.argv[1:]) or ["toy", "mpt", "kzg"]
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
 
@@ -251,6 +342,9 @@ def main(argv=None) -> int:
     if "mpt" in which:
         MPT_OUT.write_text(json.dumps(record_mpt(), indent=1) + "\n")
         print(f"wrote {MPT_OUT}")
+    if "kzg" in which:
+        KZG_OUT.write_text(json.dumps(record_kzg(), indent=1) + "\n")
+        print(f"wrote {KZG_OUT}")
     return 0
 
 

@@ -3,7 +3,10 @@
 ``scripts/record_torch_vectors.py`` produces from the JAX package: the toy
 proofs (``tests/vectors/torch_port_toy_proof.json``) recorded again in full;
 of the state-trie case (``tests/vectors/torch_port_mpt.json``) the host
-parts, recorded again, with the digests that bind the slow parts to them."""
+parts, recorded again, with the digests that bind the slow parts to them;
+of the KZG vector (``tests/vectors/torch_port_kzg.json``) the inputs, made
+again, with the digests that bind the reference's SRS files, ``msm_t``
+results and opening to them."""
 
 import importlib.util
 import json
@@ -37,3 +40,13 @@ def test_mpt_vector_file_is_current(rec):
     assert vec["outputs_digest"] == rec.sha256_json(outputs)
     states, msgs = rec.poseidon_inputs()
     assert vec["poseidon"]["states"] == states and vec["poseidon"]["messages"] == msgs
+
+
+def test_kzg_vector_file_is_current(rec):
+    vec = json.loads(rec.KZG_OUT.read_text())
+    host = rec.kzg_inputs()
+    assert {key: vec[key] for key in rec.KZG_HOST_KEYS} == host
+    assert vec["inputs_digest"] == rec.sha256_json(host)
+    outputs = {key: vec[key] for key in vec
+               if key not in rec.KZG_HOST_KEYS + ("inputs_digest", "outputs_digest")}
+    assert vec["outputs_digest"] == rec.sha256_json(outputs)

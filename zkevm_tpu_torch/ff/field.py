@@ -369,7 +369,7 @@ def pow_const(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
     """a^e for a host-known exponent."""
     if _on_cpu(a):
         return _plain_pow(spec, a, e)
-    return _launch_pow(spec, a, e)
+    return _launch_pow(spec, a.contiguous(), e)  # the kernel reads elements 8 words apart
 
 
 def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:

@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-LIBRARIES = ("field", "ntt", "curve", "keccak", "poseidon")
+LIBRARIES = ("field", "ntt", "curve", "keccak", "poseidon", "pippenger", "kzg")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -53,6 +53,8 @@ KERNEL_NAMES = (
     "msm",
     "keccak",
     "poseidon",
+    "pippenger",
+    "kzg_open",
 )
 _counts = {name: 0 for name in KERNEL_NAMES}
 _lock = threading.Lock()

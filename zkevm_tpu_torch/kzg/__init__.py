@@ -1,5 +1,5 @@
-"""KZG layer: SRS params and device commitments."""
+"""KZG layer: SRS params, device commitments, opens, host verification."""
 
-from zkevm_tpu_torch.kzg.params import ParamsKZG
+from zkevm_tpu_torch.kzg.params import ParamsKZG, open_single, verify_single
 
-__all__ = ["ParamsKZG"]
+__all__ = ["ParamsKZG", "open_single", "verify_single"]
