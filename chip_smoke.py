@@ -6,11 +6,15 @@
 Phases, each printing its own lines before the last line:
 
 0. the card's name and power limit (``nvidia-smi``);
-1. build of the hand-written kernels A-H from ``zkevm_tpu_torch/csrc``;
+1. build of the hand-written kernels A-I from ``zkevm_tpu_torch/csrc``;
 2. every kernel against its plain PyTorch version on the card, bit for bit,
    with timings and bounds (Poseidon E also against the golden model; the
    Pippenger MSM G, unsigned and signed, at 2^12 points with zero scalars,
-   repeated bases and scalars >= 2^255; the opening's kernel H at 2^20);
+   repeated bases and scalars >= 2^255; the opening's kernel H at 2^20; the
+   four-step NTT I at k = 7, 9 and 12, and at k = 20 on one column and
+   k = 22 in a batch of 4, also against kernel B; I's column and row
+   passes as rank r of a world of 2 and 4 runs them, at k = 9, 12, 20
+   and 22);
 3. the K=5 toy proofs, field by field against the reference proofs
    recorded in ``tests/vectors/torch_port_toy_proof.json``; then the small
    state-trie case (MPT circuit over the PoseidonTable, depth 8, k=12)
@@ -45,7 +49,20 @@ Phases, each printing its own lines before the last line:
    eval), ``open_single`` of a 2^20 column at a random z with
    ``verify_single`` (True, and False for value + 1), with the path's launch
    counts; then G over the loaded SRS at 2^20 points against its plain
-   version word for word and against C's MSM by affine points.
+   version word for word and against C's MSM by affine points;
+9. the mesh path (``parallel/mesh.py``) over NCCL in a world of one GPU
+   (a ``file://`` store under ``build/``): at 2^20 points ``sharded_msm``,
+   ``sharded_msm_t_scan`` and ``sharded_msm_t`` (c = 4 and 16) against C's
+   MSM by affine points and ``sharded_msm_t`` against G's MSM word for word,
+   at 2^12 (c = 4) and 2^14 (c = 16, every fold segment) against its plain
+   version; ``sharded_ntt_batch`` (16 columns,
+   k=20) against B and ``sharded_ntt_t`` (k = 20 and 22, both directions)
+   against I word for word; then ``unsafe_setup(20)`` with ``use_mesh()``
+   and phase 6's circuit: ``keygen`` (phase 6's vk fingerprint),
+   ``create_proof`` (every field equals phase 6's proof), ``verify_proof``
+   (True, and False on a tampered eval). Launches and collectives are
+   counted in two windows: the mesh functions, then the proof. A world of one measures the local engine and NCCL's
+   per-call cost, never scaling.
 
 Then one JSON line with every kernel's numbers and, last, the ok line.
 Any failure exits non-zero before the ok line. Without CUDA, or without
@@ -123,6 +140,8 @@ class Report:
         "field_nonzero": ("zkevm_tpu_torch/csrc/field.cu", "zkevm_tpu/plonk/mock.py:98"),
         "pippenger": ("zkevm_tpu_torch/csrc/pippenger.cu", "zkevm_tpu/ec/pippenger.py:213"),
         "kzg_open": ("zkevm_tpu_torch/csrc/kzg.cu", "zkevm_tpu/kzg/params.py:198"),
+        "ntt4": ("zkevm_tpu_torch/csrc/ntt4.cu", "zkevm_tpu/poly/ntt.py:185"),
+        "mesh": ("zkevm_tpu_torch/parallel/mesh.py", "zkevm_tpu/parallel/mesh.py:280"),
     }
 
     def __init__(self):
@@ -197,7 +216,9 @@ def pippenger_int_ops(torch, scalars, c: int, signed: bool, sublanes: int = 1024
     affine bases: a mixed addition per non-zero digit after the first into
     its (lane, window, bucket), a full addition per further filled lane of
     each (window, bucket) group in the lane merge, two per bucket for the
-    fold, and Horner's additions and doublings."""
+    fold's running sums (and, when a window folds in several segments, the
+    combination's three per segment and its doublings), and Horner's
+    additions and doublings."""
     from zkevm_tpu_torch.ec import pippenger as pip
 
     digits = pip.digit_table(scalars, c, 256, signed).abs()
@@ -211,13 +232,42 @@ def pippenger_int_ops(torch, scalars, c: int, signed: bool, sublanes: int = 1024
         filled += int((torch.bincount(lane * nb + d, minlength=lw * nb).reshape(lw, nb)[:, 1:] > 0)
                       .sum().item())
         groups += int((torch.bincount(d, minlength=nb)[1:] > 0).sum().item())
-    full = filled - groups + 2 * (nb - 1) * wd + wd - 1
-    return (nonzero - filled) * MADD_INT_OPS + full * ADD_INT_OPS + (wd - 1) * c * DBL_INT_OPS
+    parts, seg = pip.fold_segments(nb)
+    combine_adds, combine_dbls = (3 * parts, seg.bit_length() - 1) if parts > 1 else (0, 0)
+    full = filled - groups + (2 * (nb - 1) + combine_adds) * wd + wd - 1
+    dbls = (wd - 1) * c + combine_dbls * wd
+    return (nonzero - filled) * MADD_INT_OPS + full * ADD_INT_OPS + dbls * DBL_INT_OPS
 
 
 # one Montgomery product per factor of f_i * w^i * d_i and of (f_i - f(z)) * d_i,
 # an addition into the sum and a subtraction, per element
 OPEN_INT_OPS = 3 * MUL_INT_OPS + 2 * ADD_INT_OPS_FIELD
+
+
+def radix2_int_ops(k: int) -> int:
+    """Multiply instructions of one radix-2 transform of 2^k: an addition and
+    a subtraction for each of the k * n/2 butterflies, and a product for each
+    butterfly whose twiddle is not w^0 = 1 (n/2 - n/2^s in stage s, so
+    k * n/2 - (n - 1) in all)."""
+    n = 1 << k
+    return k * (n // 2) * 2 * ADD_INT_OPS_FIELD + (k * (n // 2) - (n - 1)) * MUL_INT_OPS
+
+
+def ntt_t_int_ops(k: int, batch: int = 1, inverse: bool = False) -> int:
+    """Multiply instructions of ntt_t over ``batch`` transforms of 2^k: the
+    radix-2 sub-transforms (one of 2^k at k <= 7; 2^k2 of 2^k1 and 2^k1 of
+    2^k2 above), the four-step twiddle's products (the elements off row and
+    column 0), and the 1/n scaling of an inverse."""
+    n = 1 << k
+    if k >= 8:
+        k1, k2 = k // 2, k - k // 2
+        ops = (1 << k2) * radix2_int_ops(k1) + (1 << k1) * radix2_int_ops(k2)
+        ops += ((1 << k1) - 1) * ((1 << k2) - 1) * MUL_INT_OPS
+    else:
+        ops = radix2_int_ops(k)
+    if inverse:
+        ops += n * MUL_INT_OPS
+    return batch * ops
 
 
 def max_abs_err(torch, a, b) -> int:
@@ -320,16 +370,16 @@ class CompositeMeter:
         setattr(owner, name, self._wrap(key, fn, cost))
 
     def __enter__(self):
-        from zkevm_tpu_torch.ec import msm as msmmod
+        from zkevm_tpu_torch.ec import msm as msmmod, pippenger as pip
+        from zkevm_tpu_torch.parallel import mesh as pm
         from zkevm_tpu_torch.plonk import prover as prv, shplonk
         from zkevm_tpu_torch.poly.domain import Domain
 
         torch = self.torch
-        ntt_ops = (MUL_INT_OPS + 48) // 2  # per element and stage
 
         def coset_ntt(dom, a):
             en = a.shape[-2]
-            return 64 * en, en * (en.bit_length() - 1) * ntt_ops + 2 * en * MUL_INT_OPS
+            return 64 * en, radix2_int_ops(en.bit_length() - 1) + 2 * en * MUL_INT_OPS
 
         self._patch(Domain, "divide_by_vanishing_poly", "K6",
                     lambda dom, a: (64 * a.shape[0], a.shape[0] * MUL_INT_OPS))
@@ -357,16 +407,25 @@ class CompositeMeter:
             return sum(4 * t.numel() for t in polys.values()), 0
 
         self._patch(shplonk, "open_many", "K14", open_many_cost)
-        call = msmmod.MSM.__call__
         meter = self
 
-        def msm_call(msm_self, scalars):
-            if meter._active == "K14":
-                meter.ops["K14"] += msm_int_ops(torch, scalars, msmmod.window_bits(scalars.shape[0]))
-            return call(msm_self, scalars)
+        def count_msm(engine_cls, ops_of):
+            call = engine_cls.__call__
 
-        self._saved.append((msmmod.MSM, "__call__", call))
-        msmmod.MSM.__call__ = msm_call
+            def msm_call(engine, scalars):
+                if meter._active == "K14":
+                    meter.ops["K14"] += ops_of(engine, scalars)
+                return call(engine, scalars)
+
+            self._saved.append((engine_cls, "__call__", call))
+            engine_cls.__call__ = msm_call
+
+        # K14's two MSMs, by the params' engine: C's, G's (a loaded SRS file)
+        # or the mesh's
+        count_msm(msmmod.MSM, lambda e, sc: msm_int_ops(torch, sc, msmmod.window_bits(sc.shape[0])))
+        count_msm(pip.PippengerMSM, lambda e, sc: pippenger_int_ops(torch, sc, e.c, False, e.sublanes))
+        count_msm(pm.MeshMSM, lambda e, sc: scalar_mul_int_ops(torch, sc) if e.scan else
+                  pippenger_int_ops(torch, sc, e.c, False, MESH_SUBLANES))
         return self
 
     def __exit__(self, *exc):
@@ -488,8 +547,107 @@ def phase_ntt(torch, rep: Report, gen, dev, k_small: int = 16, k_full: int = 20)
     log(f"  ntt round trip and plain comparison equal at k={k}")
     ms = cuda_ms(torch, lambda: nt.ntt(x))
     n = 1 << k
-    rep.record("ntt", f"({n}, 8) Fr, k={k}", err, ms, pms, 64 * n,
-               k * (n // 2) * (MUL_INT_OPS + 48))
+    rep.record("ntt", f"({n}, 8) Fr, k={k}", err, ms, pms, 64 * n, radix2_int_ops(k))
+
+
+def phase_ntt4(torch, rep: Report, gen, dev, ks=(7, 9, 12), batch: int = 2) -> None:
+    """Kernel I (ntt_t / intt_t) against its plain version and kernel B word
+    for word: the one-pass branch (k = 7), an odd k (k1 != k2) and k = 12,
+    in a batch; timed at k = 12 on one column."""
+    from zkevm_tpu_torch.ff.field import FR
+    from zkevm_tpu_torch.poly import ntt as nt
+
+    for k in ks:
+        a = random_field(torch, FR, batch << k, gen, dev).reshape(batch, 1 << k, 8)
+        for inverse in (False, True):
+            got = nt.ntt_t(a, k, inverse=inverse)
+            check_equal(f"ntt_t k={k} inverse={inverse}",
+                        max_abs_err(torch, got, nt.PLAIN["ntt_t"](a, k, inverse=inverse)))
+            if not torch.equal(got, nt.intt(a, k) if inverse else nt.ntt(a, k)):
+                raise AssertionError(f"ntt_t k={k} inverse={inverse} differs from kernel B")
+    log(f"  ntt_t intt_t equal their plain versions and kernel B at k={list(ks)}, batch {batch}")
+    k = ks[-1]
+    n = 1 << k
+    x = random_field(torch, FR, n, gen, dev)
+    want, pms = plain_ms_of(torch, lambda: nt.PLAIN["ntt_t"](x, k))
+    err = max_abs_err(torch, nt.ntt_t(x, k), want)
+    check_equal(f"ntt_t k={k}", err)
+    ms = cuda_ms(torch, lambda: nt.ntt_t(x, k))
+    rep.record("ntt4", f"({n}, 8) Fr, k={k}", err, ms, pms, 64 * n, ntt_t_int_ops(k))
+
+
+def phase_ntt4_layout(torch, gen, dev, ks=(9, 12, 20, 22), worlds=(2, 4)) -> None:
+    """Kernel I's passes as sharded_ntt_t runs them on rank r of a world of
+    2 or 4, on this one card: the column pass on the pitched slice of
+    columns at c0 = r * n2 / world, the row pass reading the `world` blocks
+    that the all_to_all leaves. Each pass is held to its plain version word
+    for word, and the passes, with the all_to_all, gather and transpose done
+    by hand, must give ntt_t."""
+    from zkevm_tpu_torch.ff.field import FR
+    from zkevm_tpu_torch.poly import ntt as nt
+
+    for k in ks:
+        k1, k2 = nt.fourstep_split(k)
+        n1, n2 = 1 << k1, 1 << k2
+        x = random_field(torch, FR, 1 << k, gen, dev)
+        view = x.reshape(1, n1, n2, 8)
+        for inverse in (False, True):
+            want = nt.ntt_t(x, k, inverse=inverse)
+            for world in worlds:
+                w, m = n2 // world, n1 // world
+                cols = []
+                for r in range(world):
+                    part = view[:, :, r * w : (r + 1) * w]
+                    got = nt.ntt4_cols(part, k, c0=r * w, inverse=inverse)
+                    check_equal(f"ntt4_cols k={k} inverse={inverse} rank {r} of {world}",
+                                max_abs_err(torch, got, nt.PLAIN["ntt4_cols"](part, k, c0=r * w, inverse=inverse)))
+                    cols.append(got.reshape(n1, w, 8))
+                rows = []
+                for r in range(world):
+                    recv = torch.cat([b[r * m : (r + 1) * m] for b in cols])  # the all_to_all's blocks
+                    got = nt.ntt4_rows(recv, k, k2, parts=world, inverse=inverse)
+                    check_equal(f"ntt4_rows k={k} inverse={inverse} rank {r} of {world}",
+                                max_abs_err(torch, got, nt.PLAIN["ntt4_rows"](recv, k, k2, parts=world,
+                                                                               inverse=inverse)))
+                    rows.append(got)
+                out = nt.ntt4_transpose(torch.cat(rows).reshape(1, n1, n2, 8)).reshape(1 << k, 8)
+                if not torch.equal(out, want):
+                    raise AssertionError(f"ntt4 passes at world {world}, k={k}, inverse={inverse} differ from ntt_t")
+        del x, view, want, cols, rows, out
+    log(f"  ntt4_cols at c0 > 0 and ntt4_rows with parts = {list(worlds)} equal their plain versions, "
+        f"and assemble ntt_t, at k={list(ks)}")
+
+
+def phase_ntt4_shapes(torch, rep: Report, gen, dev, shapes=((20, 1), (22, 4))) -> None:
+    """Kernel I at the main path's shapes (k = 20 on one column, as
+    sharded_ntt_t runs it; k = 22 in a batch of 4, the reference bench's
+    ntt_t): against its plain version and kernel B word for word, timed
+    beside B."""
+    from zkevm_tpu_torch.ff.field import FR
+    from zkevm_tpu_torch.poly import ntt as nt
+
+    extra = {}
+    for k, batch in shapes:
+        n = 1 << k
+        a = random_field(torch, FR, batch * n, gen, dev).reshape(batch, n, 8)
+        got = nt.ntt_t(a, k)
+        want, pms = plain_ms_of(torch, lambda: nt.PLAIN["ntt_t"](a, k))
+        check_equal(f"ntt_t k={k} batch {batch}", max_abs_err(torch, got, want))
+        del want
+        if not torch.equal(got, nt.ntt(a, k)) or not torch.equal(nt.intt_t(got, k), a):
+            raise AssertionError(f"ntt_t k={k} batch {batch} differs from kernel B, or intt_t does not invert it")
+        ms = cuda_ms(torch, lambda: nt.ntt_t(a, k))
+        radix2_ms = cuda_ms(torch, lambda: nt.ntt(a, k))
+        shape = f"({batch}, {n}, 8) Fr, k={k}"
+        extra[k] = main_shape_entry("ntt4", shape, ms, pms / 1e3, "whole", 64 * batch * n,
+                                    ntt_t_int_ops(k, batch))
+        extra[k]["main_shape_radix2_ms"] = radix2_ms
+        log(f"  ntt_t at {shape}: equal to its plain version and kernel B; B's ntt {radix2_ms:.4f} ms")
+        del a, got
+        torch.cuda.empty_cache()
+    k_bench = shapes[-1][0]
+    rep.rows["ntt4"].update(extra[k_bench])
+    rep.rows["ntt4"]["other_shapes"] = [extra[k] for k, _ in shapes[:-1]]
 
 
 def _random_points(torch, count, rng, dev):
@@ -598,8 +756,15 @@ def phase_pippenger(torch, rep: Report, rng, dev, n: int = 1 << 12) -> None:
         timed[signed] = pms
     if group.to_affine_ints(got) != group.to_affine_ints(msmmod.msm(bases, sc)):
         raise AssertionError(f"pippenger msm differs from C's msm at n={n}")
+    # windows of more than 256 buckets, whose fold runs in several segments
+    for c, signed in ((9, False), (10, True)):
+        small = (bases[:64], sc[:64])
+        check_equal(f"pippenger msm (c={c}, signed={signed}, segmented fold)",
+                    max_abs_err(torch, pip.msm(*small, c=c, sublanes=4, signed=signed),
+                                pip.PLAIN["msm"](*small, c=c, sublanes=4, signed=signed)))
     log(f"  pippenger msm (c=4, unsigned and signed) equals the plain version at n={n} "
-        f"(zero scalars, scalars >= 2^255, repeated bases) and C's msm")
+        f"(zero scalars, scalars >= 2^255, repeated bases) and C's msm; at n=64 with c=9 and signed "
+        f"c=10 (segmented fold) its plain version")
     ms = cuda_ms(torch, lambda: pip.msm(bases, sc))
     rep.record("pippenger", f"n={n}, c=4 unsigned", 0, ms, timed[False], 128 * n + 96,
                pippenger_int_ops(torch, sc, 4, False))
@@ -1050,7 +1215,7 @@ def phase_main_shapes(torch, rep: Report, gen, rng, dev, params, domain, *, widt
     check_equal(f"ntt ({batch}, {n}) batch", max_abs_err(torch, got, want))
     del got, want
     record("ntt", f"({batch}, {n}, 8) Fr, k={k}", cuda_ms(torch, lambda: nt.ntt(big, k), reps=3),
-           pms / 1e3, "whole", 64 * batch * n, batch * k * (n // 2) * (MUL_INT_OPS + 48))
+           pms / 1e3, "whole", 64 * batch * n, batch * radix2_int_ops(k))
     del big
     ek, en = domain.extended_k, domain.extended_n
     h_ext = random_field(torch, FR, en, gen, dev)
@@ -1400,15 +1565,18 @@ def phase_srs_file(torch, rep: Report, rng, dev, seed: int, mpt: dict) -> dict:
     step("write_params_file", lambda: write_params_file(setup, path, tau=SETUP_TAU))
     del setup
     params = step("load_params_file", lambda: load_params_file(path, k, device=dev))
-    pk = step("keygen", lambda: keygen(params, cs, asg))
-    proof = step("create_proof", lambda: create_proof(params, pk, [], asg, seed=seed,
-                                                      transcript=PoseidonTranscript()))
-    ok = step("verify_proof", lambda: verify_proof(params, pk.vk, [], proof, transcript=PoseidonTranscript()))
+    with CompositeMeter(torch) as meter:
+        pk = step("keygen", lambda: keygen(params, cs, asg))
+        proof = step("create_proof", lambda: create_proof(params, pk, [], asg, seed=seed,
+                                                          transcript=PoseidonTranscript()))
+        ok = step("verify_proof", lambda: verify_proof(params, pk.vk, [], proof,
+                                                       transcript=PoseidonTranscript()))
     commitment = step("commit_lagrange", lambda: params.commit_lagrange(column))
     value, opening = step("open_single", lambda: open_single(params, column, z))
     opened = step("verify_single", lambda: verify_single(params, commitment, z, value, opening))
     launches = kernels.launch_counts()
     log(f"  launches: {json.dumps(launches)}")
+    log(f"  composites: {json.dumps(meter.summary())}")
     log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
     check_srs_file(path, k, SETUP_TAU)
@@ -1454,7 +1622,217 @@ def phase_srs_file(torch, rep: Report, rng, dev, seed: int, mpt: dict) -> dict:
     log("  pippenger at the loaded SRS equals its plain version word for word and C's msm (affine)")
     entry["main_shape_held_to"] = "its plain version, word for word; C's msm, affine"
     rep.rows["pippenger"].update(entry)
-    return {"times": times, "launches": launches}
+    return {"times": times, "launches": launches, "composites": meter.summary()}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the mesh path (parallel/mesh.py over NCCL, a world of one GPU) at
+# size k, on phase 6's circuit, assignment and seed
+# ---------------------------------------------------------------------------
+
+MESH_PROOF_KERNELS = ("field_mul", "field_add_sub", "field_pow", "ntt", "pippenger")
+MESH_SUBLANES = 128  # sharded_msm_t's Lw
+MESH_SMALL = 1 << 12  # the mesh MSM held to its plain version at this many points
+MESH_PLAIN16 = 1 << 14  # ... and at c = 16 at this many
+
+
+def phase_mesh(torch, rep: Report, gen, rng, dev, seed: int, mpt: dict) -> dict:
+    import copy
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from zkevm_tpu_torch import kernels
+    from zkevm_tpu_torch.ec import group, msm as msmmod, pippenger as pip
+    from zkevm_tpu_torch.ff import field as ff
+    from zkevm_tpu_torch.ff.field import FR
+    from zkevm_tpu_torch.kzg import ParamsKZG
+    from zkevm_tpu_torch.parallel import mesh as pm
+    from zkevm_tpu_torch.plonk import create_proof, keygen, verify_proof
+    from zkevm_tpu_torch.plonk.prover import proof_to_json
+    from zkevm_tpu_torch.poly import ntt as nt
+    from zkevm_tpu_torch.prover import vk_fingerprint
+    from zkevm_tpu_torch.transcript import PoseidonTranscript
+
+    times = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        log(f"  {name}: {times[name]:.1f} s")
+        return out
+
+    k = MAIN_K
+    n = 1 << k
+    store = ROOT / "build" / f"mesh_store_{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: NCCL's bootstrap on the loopback
+    torch.cuda.set_device(torch.cuda.current_device())
+    step("init_process_group", lambda: dist.init_process_group(
+        "nccl", init_method=f"file://{store}", rank=0, world_size=1, timeout=datetime.timedelta(minutes=5)))
+    try:
+        mesh = pm.default_mesh()
+        log(f"  mesh: world {mesh.world}, rank {mesh.rank}, {mesh.device}, backend {dist.get_backend()}")
+        params = step("unsafe_setup", lambda: ParamsKZG.unsafe_setup(k, tau=SETUP_TAU, device=dev))
+        pts = params.g1_powers
+        sc = ff.to_tensor(ff.words_from_ints([int.from_bytes(rng.bytes(32), "little") % FR.modulus
+                                              for _ in range(n)]), dev)
+        polys = random_field(torch, FR, 16 * n, gen, dev).reshape(16, n, 8)
+        cols = {kk: random_field(torch, FR, 1 << kk, gen, dev) for kk in (k, 22)}
+
+        # the mesh functions, counted: the point-sharded MSMs at 2^20, the
+        # batch-sharded NTT (16 columns) and the four-step NTT (k = 20, 22)
+        calls = [("sharded_msm", lambda: pm.sharded_msm(mesh, pts, sc)),
+                 ("sharded_msm_t_scan", lambda: pm.sharded_msm_t_scan(mesh, pts, sc)),
+                 ("sharded_msm_t c=4", lambda: pm.sharded_msm_t(mesh, pts, sc, c=4)),
+                 ("sharded_msm_t c=16", lambda: pm.sharded_msm_t(mesh, pts, sc, c=16)),
+                 ("sharded_ntt_batch", lambda: pm.sharded_ntt_batch(mesh, polys, k))]
+        calls += [(f"sharded_ntt_t k={kk} inverse={inv}",
+                   lambda kk=kk, inv=inv: pm.sharded_ntt_t(mesh, cols[kk], kk, inverse=inv))
+                  for kk in cols for inv in (False, True)]
+        kernels.reset_launches()
+        pm.reset_collectives()
+        got = {name: step(name, fn) for name, fn in calls}
+        api_launches = kernels.launch_counts()
+        api_collectives = pm.collective_counts()
+        log(f"  launches: {json.dumps(api_launches)}")
+        log(f"  collectives: {json.dumps(api_collectives)}")
+
+        # ... against C's MSM (affine), G's msm with the same parameters, B
+        # and I (words)
+        want = group.to_affine_ints(msmmod.MSM(pts)(sc))
+        for name in ("sharded_msm", "sharded_msm_t_scan", "sharded_msm_t c=4", "sharded_msm_t c=16"):
+            if group.to_affine_ints(got[name]) != want:
+                raise AssertionError(f"{name} differs from C's msm at n={n}")
+        for c in (4, 16):
+            check_equal(f"sharded_msm_t c={c} against G's msm",
+                        max_abs_err(torch, got[f"sharded_msm_t c={c}"],
+                                    pip.msm(pts, sc, c=c, sublanes=MESH_SUBLANES)))
+        if not torch.equal(got["sharded_ntt_batch"], nt.ntt(polys, k)):
+            raise AssertionError(f"sharded_ntt_batch differs from kernel B at k={k}, 16 columns")
+        for kk, a in cols.items():
+            for inv in (False, True):
+                if not torch.equal(got[f"sharded_ntt_t k={kk} inverse={inv}"], nt.ntt_t(a, kk, inverse=inv)):
+                    raise AssertionError(f"sharded_ntt_t k={kk} inverse={inv} differs from kernel I's ntt_t")
+        check_equal(f"sharded_ntt_t k={k} against its plain version",
+                    max_abs_err(torch, got[f"sharded_ntt_t k={k} inverse=False"],
+                                pm.PLAIN["sharded_ntt_t"](mesh, cols[k], k)))
+        del got, polys
+        missing = [name for name in ("ntt", "ntt4", "g1_add", "g1_scalar_mul", "pippenger")
+                   if api_launches[name] == 0]
+        if missing or not all(api_collectives.values()):
+            raise AssertionError(f"mesh functions: kernels never launched {missing}, "
+                                 f"collectives {api_collectives}")
+        mesh_ms = {c: cuda_ms(torch, lambda c=c: pm.sharded_msm_t(mesh, pts, sc, c=c), reps=1) for c in (4, 16)}
+        g16_ms = cuda_ms(torch, lambda: pip.msm(pts, sc, c=16, sublanes=MESH_SUBLANES), reps=1)
+        ntt_ms = {kk: cuda_ms(torch, lambda kk=kk: pm.sharded_ntt_t(mesh, cols[kk], kk)) for kk in cols}
+        part = pip.msm(pts[:MESH_SMALL], sc[:MESH_SMALL], c=4, sublanes=MESH_SUBLANES)
+        gather_ms = cuda_ms(torch, lambda: pm._gather_fold(mesh, part, group.add), reps=20)
+        log(f"  sharded_msm, sharded_msm_t_scan, sharded_msm_t (c=4, 16) equal C's msm at n={n} (affine), "
+            f"sharded_msm_t equals G's msm word for word; sharded_ntt_batch equals B (16 columns, k={k}); "
+            f"sharded_ntt_t and its inverse equal I's ntt_t at k={k} and 22 (and its plain version at "
+            f"k={k}); sharded_msm_t c=16 {mesh_ms[16]:.2f} ms (G's msm alone {g16_ms:.2f} ms), c=4 "
+            f"{mesh_ms[4]:.2f} ms; sharded_ntt_t {ntt_ms[k]:.4f} ms at k={k}, {ntt_ms[22]:.4f} ms at k=22; "
+            f"all_gather + fold {gather_ms:.4f} ms")
+        del cols, part
+        # the mesh MSM at MESH_SMALL points against its plain version
+        # (G's and C's plain versions around the same NCCL gather)
+        small = (pts[:MESH_SMALL], sc[:MESH_SMALL])
+        small_got = pm.sharded_msm_t(mesh, *small, c=4)
+        plain, pms = plain_ms_of(torch, lambda: pm.PLAIN["sharded_msm_t"](mesh, *small, c=4))
+        check_equal(f"sharded_msm_t at n={MESH_SMALL}", max_abs_err(torch, small_got, plain))
+        small_ms = cuda_ms(torch, lambda: pm.sharded_msm_t(mesh, *small, c=4))
+        rep.record("mesh", f"sharded_msm_t n={MESH_SMALL}, c=4, world 1", 0, small_ms, pms,
+                   128 * MESH_SMALL + 96 * 2,
+                   pippenger_int_ops(torch, small[1], 4, False, MESH_SUBLANES))
+        del small_got, plain, small
+        # G's segmented fold at the mesh engine's c = 16, Lw = 128 (256
+        # segments of 256 buckets per window) against its plain version, on
+        # MESH_PLAIN16 points: the plain fold walks every bucket whatever n
+        # is, its accumulation 8,192 steps per lane at 2^20
+        small = (pts[:MESH_PLAIN16], sc[:MESH_PLAIN16])
+        if pip.fold_segments(pip.num_buckets(16, False)) != (256, 256):
+            raise AssertionError("c=16 does not fold in 256 segments of 256 buckets")
+        small_got = pm.sharded_msm_t(mesh, *small, c=16)
+        plain, plain16_ms = plain_ms_of(torch, lambda: pm.PLAIN["sharded_msm_t"](mesh, *small, c=16))
+        plain16_err = max_abs_err(torch, small_got, plain)
+        check_equal(f"sharded_msm_t c=16 at n={MESH_PLAIN16} against its plain version", plain16_err)
+        small16_ms = cuda_ms(torch, lambda: pm.sharded_msm_t(mesh, *small, c=16), reps=3)
+        log(f"  sharded_msm_t c=16, Lw={MESH_SUBLANES} at n={MESH_PLAIN16} equals its plain version word for "
+            f"word: {small16_ms:.2f} ms, plain {plain16_ms / 1e3:.1f} s")
+        del small_got, plain, small
+        torch.cuda.empty_cache()
+
+        # the main path: the MPT proof with every commitment through MeshMSM
+        cs, asg = mpt["cs"], mpt["asg"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        pm.reset_collectives()
+        with CompositeMeter(torch) as meter:
+            step("use_mesh", lambda: params.use_mesh())
+            pk = step("keygen", lambda: keygen(params, cs, asg))
+            proof = step("create_proof", lambda: create_proof(params, pk, [], asg, seed=seed,
+                                                              transcript=PoseidonTranscript()))
+            ok = step("verify_proof", lambda: verify_proof(params, pk.vk, [], proof,
+                                                           transcript=PoseidonTranscript()))
+        launches = kernels.launch_counts()
+        collectives = pm.collective_counts()
+        log(f"  launches: {json.dumps(launches)}")
+        log(f"  collectives: {json.dumps(collectives)}")
+        log(f"  composites: {json.dumps(meter.summary())}")
+        log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        if not isinstance(params.committer, pm.MeshMSM) or params.committer.scan or params.committer.c != 16:
+            raise AssertionError(f"use_mesh: engine {params.committer!r}")
+        if vk_fingerprint(pk.vk) != mpt["vk_fingerprint"]:
+            raise AssertionError("the mesh-committed keygen gives another vk fingerprint than phase 6's")
+        got = proof_to_json(proof)
+        bad_fields = [f for f in got if got[f] != mpt["proof"][f]]
+        if bad_fields:
+            raise AssertionError(f"mesh proof fields differ from phase 6's proof: {bad_fields}")
+        if not ok:
+            raise AssertionError("verify_proof rejected the mesh-committed proof")
+        bad = copy.deepcopy(proof)
+        bad.evals[0] = (bad.evals[0] + 1) % FR.modulus
+        if verify_proof(params, pk.vk, [], bad, transcript=PoseidonTranscript()):
+            raise AssertionError("verify_proof accepted a tampered eval (mesh)")
+        missing = [name for name in MESH_PROOF_KERNELS if launches[name] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the mesh proof: {missing}")
+        if launches["msm"] or not sum(collectives.values()):
+            raise AssertionError(f"mesh path: C's msm launched {launches['msm']} times, "
+                                 f"collectives {collectives}")
+        log(f"  engine MeshMSM (c=16, world 1); vk fingerprint and all {len(got)} proof fields equal "
+            "phase 6's; proof verified, tampered eval rejected")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    entry = {
+        "main_shape": f"sharded_msm_t n={n}, c=16, Lw={MESH_SUBLANES}, world 1 (MeshMSM, the mesh proof's commit)",
+        "main_shape_ms": mesh_ms[16], "main_shape_c4_ms": mesh_ms[4], "main_shape_unsharded_ms": g16_ms,
+        "main_shape_held_to": "G's msm with the same parameters, word for word; C's msm, affine; "
+                              f"its plain version on the first {MESH_PLAIN16} points, word for word",
+        "main_shape_max_abs_err": plain16_err,
+        "main_shape_plain_ms": plain16_ms,
+        "main_shape_plain_on": f"the first {MESH_PLAIN16} points, same c=16 and Lw={MESH_SUBLANES} "
+                               "(every fold segment of every window)",
+        "main_shape_ms_at_plain_n": small16_ms,
+        "all_gather_fold_ms": gather_ms, "sharded_ntt_t_ms": ntt_ms,
+        "collectives": {"mesh_functions": api_collectives, "mesh_proof": collectives},
+        "local_launches": {window: {name: counts[name] for name in ("ntt", "ntt4", "g1_add", "g1_scalar_mul",
+                                                                     "pippenger")}
+                           for window, counts in (("mesh_functions", api_launches), ("mesh_proof", launches))},
+    }
+    entry["main_shape_bound_ms"], entry["main_shape_bound_by"] = bound(
+        128 * n + 96 * 2, pippenger_int_ops(torch, sc, 16, False, MESH_SUBLANES))
+    rep.rows["mesh"].update(entry)
+    return {"times": times, "functions": {"launches": api_launches, "collectives": api_collectives},
+            "proof": {"launches": launches, "collectives": collectives}, "composites": meter.summary()}
 
 
 # ---------------------------------------------------------------------------
@@ -1494,6 +1872,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     phase_field(torch, rep, gen, dev, 1 << 20)
     phase_ntt(torch, rep, gen, dev)
+    phase_ntt4(torch, rep, gen, dev)
+    phase_ntt4_shapes(torch, rep, gen, dev)
+    phase_ntt4_layout(torch, gen, dev)
     phase_curve(torch, rep, rng, dev)
     phase_keccak(torch, rep, gen, dev)
     phase_poseidon(torch, rep, gen, dev)
@@ -1537,11 +1918,26 @@ def main(argv=None) -> int:
     srs_path = phase_srs_file(torch, rep, rng, dev, args.seed, mpt_reuse)
     paths["srs_file"] = srs_path["launches"]
     log(f"phase srs file: {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    mesh_path = phase_mesh(torch, rep, gen, rng, dev, args.seed, mpt_reuse)
+    windows = {"mesh_functions": mesh_path["functions"], "mesh_proof": mesh_path["proof"]}
+    for window, counts in windows.items():
+        paths[window] = counts["launches"]
+    log(f"phase mesh: {time.perf_counter() - t:.1f} s")
 
     # launches: the sum over the main paths, each counted from zero over
-    # its own run, with the count of each path beside it
+    # its own run, with the count of each path beside it (the mesh path in
+    # two windows: its functions called directly, then the use_mesh proof);
+    # the mesh row's are its collectives (the mesh path alone issues any)
     for name, row in rep.rows.items():
-        row["launches_by_path"] = {path: counts[name] for path, counts in paths.items()}
+        if name == "mesh":
+            row["launches_by_path"] = {path: 0 for path in paths}
+            for window, counts in windows.items():
+                row["launches_by_path"][window] = sum(counts["collectives"].values())
+        else:
+            row["launches_by_path"] = {path: counts[name] for path, counts in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
 
     log(f"total: {time.perf_counter() - t0:.1f} s")

@@ -1,8 +1,8 @@
 """Record reference vectors from the JAX package for the PyTorch port.
 
-Usage: python scripts/record_torch_vectors.py [toy|mpt|kzg ...]
+Usage: python scripts/record_torch_vectors.py [toy|mpt|kzg|mesh ...]
 
-Runs ``zkevm_tpu`` on the CPU and writes three files (all by default).
+Runs ``zkevm_tpu`` on the CPU and writes four files (all by default).
 
 ``tests/vectors/torch_port_toy_proof.json``: for the K=5 toy circuit of
 ``tests/test_plonk.py`` and for a two-phase toy circuit with one
@@ -36,6 +36,23 @@ tau=777)`` at k = 4 and 6, the affine results of ``ec/pippenger.py``
 ``msm_t`` for each case, and ``open_single``'s value and proof with the
 polynomial's commitment. ``inputs_digest`` and ``outputs_digest`` bind them
 as in the MPT file.
+
+``tests/vectors/torch_port_mesh.json``: the four-step NTT and the mesh
+layer. Its inputs are made from fixed seeds (field elements for
+``poly/ntt.py`` ``ntt_t`` / ``intt_t`` at k = 8 and 9, for
+``parallel/mesh.py`` ``sharded_ntt_t`` at k = 6 and 7 and for
+``sharded_ntt_batch`` over 4 polynomials at k = 5; 32 points, among them the
+identity and a repeated base, with 32 scalars; a k = 5 SRS of tau 777 and a
+polynomial to commit). Its outputs are the reference's: ``ntt_t`` and
+``intt_t`` (normal XLA:CPU), and, on forced-host meshes of 2 and 4 CPU
+devices, ``sharded_ntt_t`` forward and inverse (``unroll=False``),
+``sharded_ntt_batch``, ``sharded_msm``, ``sharded_msm_t_scan``,
+``sharded_msm_t`` (c = 4) and the prover's ``_commit`` after
+``use_mesh(mesh, scan=True)``. The forced-host part runs in a subprocess
+with ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` and a JAX cache
+of its own under ``build/`` (that mode's cache entries must not reach a
+normal process). ``inputs_digest`` and ``outputs_digest`` bind them as in
+the MPT file.
 """
 
 from __future__ import annotations
@@ -44,6 +61,7 @@ import contextlib
 import hashlib
 import json
 import os
+import subprocess
 import sys
 from pathlib import Path
 
@@ -65,6 +83,16 @@ MSM_CASES = [(64, c, signed, 1024) for c in (3, 4, 5) for signed in (False, True
 OPEN_K = 4
 OPEN_TAU = 0xACE0FBA5E  # tests/test_kzg.py's
 OPEN_Z = 987654321987654321
+MESH_OUT = ROOT / "tests" / "vectors" / "torch_port_mesh.json"
+MESH_HOST_KEYS = ("ntt_t", "sharded_ntt_t", "ntt_batch", "msm", "commit", "worlds")
+MESH_WORLDS = (2, 4)
+MESH_POINTS = 32
+NTT_T_KS = (8, 9)
+SHARDED_NTT_T_KS = (6, 7)  # __graft_entry__.py's multichip dry-run size, and one with k1 != k2
+NTT_BATCH = (4, 5)  # polynomials, k
+MESH_MSM_C = 4
+COMMIT_K = 5  # the dryrun's commit stage
+FORCED_HOST_CACHE = ROOT / "build" / "jax_cache_forced_host"
 HASH_LENGTHS = (1, 2, 3, 5)
 TAU = 0xDEAD_BEEF_CAFE  # the reference's default unsafe_setup tau
 TOY_SEED = 7
@@ -330,12 +358,140 @@ def record_kzg() -> dict:
     return {**host, "inputs_digest": sha256_json(host), **outputs, "outputs_digest": sha256_json(outputs)}
 
 
+def mesh_inputs() -> dict:
+    """The cheap inputs of the mesh vector, made from fixed seeds."""
+    from zkevm_tpu_torch.ec import goldens as g1g
+    from zkevm_tpu_torch.ff.goldens import FR_MOD
+
+    rng = np.random.default_rng(31)
+
+    def elems(count):
+        return [int.from_bytes(rng.bytes(32), "little") % FR_MOD for _ in range(count)]
+
+    pts = [list(g1g.random_point(rng)) for _ in range(MESH_POINTS)]
+    scalars = [int.from_bytes(rng.bytes(32), "little") for _ in range(MESH_POINTS)]
+    pts[1] = None  # the identity
+    pts[5] = pts[4]  # a repeated base with an equal scalar: the doubling case
+    scalars[5] = scalars[4]
+    scalars[0], scalars[7], scalars[9] = 0, (1 << 256) - 1, FR_MOD - 1
+    nb, kb = NTT_BATCH
+    return {
+        "ntt_t": {str(k): elems(1 << k) for k in NTT_T_KS},
+        "sharded_ntt_t": {str(k): elems(1 << k) for k in SHARDED_NTT_T_KS},
+        "ntt_batch": {"k": kb, "polys": [elems(1 << kb) for _ in range(nb)]},
+        "msm": {"points": pts, "scalars": scalars, "c": MESH_MSM_C},
+        "commit": {"k": COMMIT_K, "tau": SRS_TAU, "coeffs": elems(1 << COMMIT_K)},
+        "worlds": list(MESH_WORLDS),
+    }
+
+
+def _mesh_forced_host(host: dict) -> dict:
+    """The reference's mesh functions on forced-host meshes of each world
+    size (run in a process started with XLA's forced host device count)."""
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_compilation_cache_dir", str(FORCED_HOST_CACHE))
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    sys.path.insert(0, str(ROOT))
+    from zkevm_tpu.ec import goldens as g1g, group, group_t
+    from zkevm_tpu.ec.group import G1
+    from zkevm_tpu.ff import FR, limbs
+    from zkevm_tpu.kzg.params import ParamsKZG
+    from zkevm_tpu.parallel import mesh as meshmod
+    from zkevm_tpu.plonk.prover import _commit
+
+    def enc(vals):
+        return np.stack([FR.encode(v) for v in vals])
+
+    def dec(a):
+        return [FR.decode(v) for v in np.asarray(a).reshape(-1, limbs.L)]
+
+    def aff(p):
+        q = group.to_affine_ints(G1(*(jnp.reshape(c, (1, limbs.L)) for c in p)))[0]
+        return None if q is None else [int(q[0]), int(q[1])]
+
+    def aff_t(p):
+        return aff(group_t.to_g1(p))
+
+    m = host["msm"]
+    pts = group.from_affine_ints([None if p is None else tuple(p) for p in m["points"]])
+    sc = jnp.asarray(limbs.limbs_from_ints(m["scalars"]))
+    cm = host["commit"]
+    srs, t = [], 1
+    for _ in range(1 << cm["k"]):
+        srs.append(g1g.scalar_mul(g1g.G1_GEN, t))
+        t = t * cm["tau"] % FR.modulus
+    out = {}
+    for world in host["worlds"]:
+        mesh = meshmod.default_mesh(world)
+        if mesh.shape["chips"] != world:
+            raise RuntimeError(f"forced-host mesh has {mesh.shape['chips']} devices, not {world}")
+        r = {"sharded_ntt_t": {}}
+        for k, vals in host["sharded_ntt_t"].items():
+            a_t = jnp.asarray(enc(vals).T)
+            r["sharded_ntt_t"][k] = {
+                "ntt": dec(meshmod.sharded_ntt_t(mesh, a_t, int(k), unroll=False).T),
+                "intt": dec(meshmod.sharded_ntt_t(mesh, a_t, int(k), inverse=True, unroll=False).T),
+            }
+            progress(f"mesh: world {world} sharded_ntt_t k={k} recorded")
+        b = host["ntt_batch"]
+        polys = jnp.asarray(np.stack([enc(p) for p in b["polys"]]))
+        got = np.asarray(meshmod.sharded_ntt_batch(mesh, polys, b["k"]))
+        r["sharded_ntt_batch"] = [dec(p) for p in got]
+        progress(f"mesh: world {world} sharded_ntt_batch recorded")
+        r["sharded_msm_t_scan"] = aff_t(meshmod.sharded_msm_t_scan(mesh, group_t.from_g1(pts), sc))
+        progress(f"mesh: world {world} sharded_msm_t_scan recorded")
+        params = ParamsKZG(k=cm["k"], g1_powers=group.from_affine_ints(srs), g2=None, s_g2=None)
+        params.use_mesh(mesh, scan=True)
+        c = _commit(params, jnp.asarray(enc(cm["coeffs"])))
+        r["commit_scan"] = None if c is None else [int(c[0]), int(c[1])]
+        progress(f"mesh: world {world} use_mesh commit recorded")
+        r["sharded_msm"] = aff(meshmod.sharded_msm(mesh, pts, sc))
+        progress(f"mesh: world {world} sharded_msm recorded")
+        r["sharded_msm_t"] = aff_t(meshmod.sharded_msm_t(mesh, group_t.from_g1(pts), sc, c=m["c"]))
+        progress(f"mesh: world {world} sharded_msm_t recorded")
+        out[str(world)] = r
+    return out
+
+
+def record_mesh() -> dict:
+    """The mesh vector: the reference's ntt_t / intt_t here, and its mesh
+    functions in a forced-host subprocess (slow: minutes of compilation)."""
+    sys.path.insert(0, str(ROOT))
+    import jax.numpy as jnp
+
+    from zkevm_tpu.ff import FR
+    from zkevm_tpu.poly import ntt as nttmod
+
+    host = mesh_inputs()
+    ntt_t = {}
+    for k, vals in host["ntt_t"].items():
+        a_t = jnp.asarray(np.stack([FR.encode(v) for v in vals]).T)
+        ntt_t[k] = {"ntt": [FR.decode(v) for v in np.asarray(nttmod.ntt_t(a_t, int(k))).T],
+                    "intt": [FR.decode(v) for v in np.asarray(nttmod.intt_t(a_t, int(k))).T]}
+        progress(f"mesh: ntt_t k={k} recorded")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
+                          + f" --xla_force_host_platform_device_count={max(MESH_WORLDS)}").strip())
+    proc = subprocess.run([sys.executable, __file__, "mesh-forced-host"], input=json.dumps(host),
+                          capture_output=True, text=True, env=env, cwd=ROOT, check=False)
+    sys.stderr.write(proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the forced-host mesh recording failed (rc {proc.returncode})")
+    outputs = {"ntt_t_out": ntt_t, "mesh_out": json.loads(proc.stdout.strip().splitlines()[-1])}
+    return {**host, "inputs_digest": sha256_json(host), **outputs, "outputs_digest": sha256_json(outputs)}
+
+
 def main(argv=None) -> int:
-    which = (argv if argv is not None else sys.argv[1:]) or ["toy", "mpt", "kzg"]
+    which = (argv if argv is not None else sys.argv[1:]) or ["toy", "mpt", "kzg", "mesh"]
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if which == ["mesh-forced-host"]:  # the subprocess of record_mesh
+        print(json.dumps(_mesh_forced_host(json.loads(sys.stdin.read()))))
+        return 0
     if "toy" in which:
         OUT.write_text(json.dumps(record(), indent=1) + "\n")
         print(f"wrote {OUT}")
@@ -345,6 +501,9 @@ def main(argv=None) -> int:
     if "kzg" in which:
         KZG_OUT.write_text(json.dumps(record_kzg(), indent=1) + "\n")
         print(f"wrote {KZG_OUT}")
+    if "mesh" in which:
+        MESH_OUT.write_text(json.dumps(record_mesh(), indent=1) + "\n")
+        print(f"wrote {MESH_OUT}")
     return 0
 
 

@@ -82,7 +82,7 @@ def test_unsafe_setup_matches_reference():
     # the reference's SRS arrays carried across
     p = jparams.g1_powers
     carried = convert.params_from_numpy(np.asarray(p.x), np.asarray(p.y), np.asarray(p.z),
-                                        jparams.g2, jparams.s_g2)
+                                        jparams.g2, jparams.s_g2, device="cpu")
     assert group.to_affine_ints(carried.g1_powers) == group.to_affine_ints(params.g1_powers)
 
 

@@ -128,7 +128,7 @@ def test_broadcasting(rng):
 
 def test_repack_round_trip(rng):
     raw = rng.integers(0, 1 << 16, size=(5, 3, 16), dtype=np.uint32)
-    words = convert.limbs16_to_words(raw)
+    words = convert.limbs16_to_words(raw, device="cpu")
     assert words.dtype == torch.int32 and words.shape == (5, 3, 8)
     np.testing.assert_array_equal(convert.words_to_limbs16(words), raw)
     ints = ff.ints_from_words(words)

@@ -1,5 +1,7 @@
 """The port never imports JAX or the reference package: every ``.py`` under
-``zkevm_tpu_torch/`` and ``chip_smoke.py``, parsed with ``ast``."""
+``zkevm_tpu_torch/``, ``chip_smoke.py`` and the mesh tests' rank module
+``tests/port/_mesh_worker.py`` (the spawned ranks must not import JAX),
+parsed with ``ast``."""
 
 import ast
 from pathlib import Path
@@ -7,7 +9,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[2]
-FILES = sorted((ROOT / "zkevm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "zkevm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                            ROOT / "tests" / "port" / "_mesh_worker.py"]
 BANNED = ("jax", "jaxlib", "zkevm_tpu")
 
 
@@ -36,6 +39,7 @@ def _banned(name: str) -> bool:
 
 def test_port_files_found():
     assert len(FILES) > 40 and (ROOT / "zkevm_tpu_torch" / "hash" / "poseidon.py") in FILES
+    assert (ROOT / "zkevm_tpu_torch" / "parallel" / "mesh.py") in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

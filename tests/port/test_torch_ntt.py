@@ -34,11 +34,11 @@ def _same(port_out, jax_out):
 def test_ntt_and_intt_match_reference(rng, k):
     a = _enc(_rand(rng, 1 << k))
     want_ntt, want_intt = jax.jit(lambda x: (jntt.ntt(x, k), jntt.intt(x, k)))(a)
-    got = ntt.ntt(convert.limbs16_to_words(a), k)
+    got = ntt.ntt(convert.limbs16_to_words(a, device="cpu"), k)
     _same(got, want_ntt)
     assert JFR.decode_many(convert.words_to_limbs16(got)) == pg.naive_ntt(
         JFR.decode_many(a), pg.domain_omega(k))
-    _same(ntt.intt(convert.limbs16_to_words(a), k), want_intt)
+    _same(ntt.intt(convert.limbs16_to_words(a, device="cpu"), k), want_intt)
 
 
 
@@ -61,7 +61,7 @@ def _naive(op, vals, k, shift=7):
 def test_transforms_match_naive_dft(rng, op, k):
     vals = _rand(rng, 1 << k)
     vals[:2] = [0, FR_MOD - 1]
-    a = convert.limbs16_to_words(_enc(vals))
+    a = convert.limbs16_to_words(_enc(vals), device="cpu")
     got = getattr(ntt, op)(a, 7) if op.startswith("coset") else getattr(ntt, op)(a, k)
     assert JFR.decode_many(convert.words_to_limbs16(got)) == _naive(op, vals, k)
 
@@ -70,7 +70,7 @@ def test_batched_and_coset_match_reference(rng):
     a = np.stack([_enc(_rand(rng, 1 << k)) for _ in range(3)])
     want = jax.jit(lambda x: (jntt.ntt(x, k), jntt.coset_ntt(x[0], 7), jntt.coset_intt(x[0], 7),
                               jntt.scale_by_powers(x[0], 5)))(a)
-    pa = convert.limbs16_to_words(a)
+    pa = convert.limbs16_to_words(a, device="cpu")
     got = (ntt.ntt(pa, k), ntt.coset_ntt(pa[0], 7), ntt.coset_intt(pa[0], 7),
            ntt.scale_by_powers(pa[0], 5))
     for g, w in zip(got, want):
@@ -87,7 +87,7 @@ def test_domain_ops_match_reference(rng):
         return ext, jdom.divide_by_vanishing_poly(ext), jdom.extended_to_coeff(ext)
 
     jext, jdiv, jback = jax.jit(reference)(coeffs)
-    ext = dom.coeff_to_extended(convert.limbs16_to_words(coeffs))
+    ext = dom.coeff_to_extended(convert.limbs16_to_words(coeffs, device="cpu"))
     _same(ext, jext)
     _same(dom.divide_by_vanishing_poly(ext), jdiv)
     _same(dom.extended_to_coeff(ext), jback)
@@ -98,6 +98,6 @@ def test_vanishing_division_recovers_quotient(rng):
     h = _rand(rng, dom.n)
     e = [(-v) % FR_MOD for v in h] + h  # h(X) * (X^n - 1)
     pad = np.zeros((dom.extended_n - 2 * dom.n, 16), np.uint32)
-    e_ext = ntt.coset_ntt(convert.limbs16_to_words(np.concatenate([_enc(e), pad])), dom.g_coset)
+    e_ext = ntt.coset_ntt(convert.limbs16_to_words(np.concatenate([_enc(e), pad]), device="cpu"), dom.g_coset)
     got = JFR.decode_many(convert.words_to_limbs16(dom.extended_to_coeff(dom.divide_by_vanishing_poly(e_ext))))
     assert got[: dom.n] == h and not any(got[dom.n:])

@@ -69,3 +69,29 @@ def test_signed_digits_match_reference(c):
     # each scalar is recovered from its signed digits
     w = np.where(signs.numpy().astype(bool), -mags.numpy().astype(object), mags.numpy().astype(object))
     assert [sum(int(w[j, i]) << (c * j) for j in range(w.shape[0])) for i in range(len(scalars))] == scalars
+
+
+@pytest.mark.parametrize("c,signed", [(9, False), (10, True)])
+def test_segmented_fold_matches_golden(golden, c, signed):
+    """Windows of more than 256 buckets fold in several segments (c = 9: two;
+    signed c = 10: 513 buckets, three, the last one ragged)."""
+    assert pip.fold_segments(pip.num_buckets(c, signed))[0] > 1
+    pts = group.from_affine_ints(POINTS[:64])
+    scalars = ff.to_tensor(ff.words_from_ints(MSM["scalars"][:64]), "cpu")
+    got = pip.msm(pts, scalars, c=c, sublanes=4, signed=signed)
+    assert group.to_affine_ints(got) == [golden[64]]
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_c16_fold_matches_golden(signed):
+    """At the mesh engine's c = 16 a window folds in 256 segments of 256
+    buckets (signed: 129 segments, the last one of a single bucket); one
+    window of 16-bit scalars keeps the plain fold's walk over every bucket
+    to seconds."""
+    c, nb = 16, pip.num_buckets(16, signed)
+    assert pip.fold_segments(nb) == ((129, 256) if signed else (256, 256))
+    low = [s % (1 << c) for s in MSM["scalars"][:64]]
+    pts = group.from_affine_ints(POINTS[:64])
+    scalars = ff.to_tensor(ff.words_from_ints(low), "cpu")
+    got = pip.msm(pts, scalars, c=c, num_bits=c, sublanes=4, signed=signed)
+    assert group.to_affine_ints(got) == [g.msm(POINTS[:64], low)]

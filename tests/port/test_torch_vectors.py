@@ -6,7 +6,10 @@ of the state-trie case (``tests/vectors/torch_port_mpt.json``) the host
 parts, recorded again, with the digests that bind the slow parts to them;
 of the KZG vector (``tests/vectors/torch_port_kzg.json``) the inputs, made
 again, with the digests that bind the reference's SRS files, ``msm_t``
-results and opening to them."""
+results and opening to them; of the mesh vector
+(``tests/vectors/torch_port_mesh.json``) the inputs, made again, with the
+digests that bind the reference's ``ntt_t`` and forced-host mesh outputs to
+them."""
 
 import importlib.util
 import json
@@ -50,3 +53,14 @@ def test_kzg_vector_file_is_current(rec):
     outputs = {key: vec[key] for key in vec
                if key not in rec.KZG_HOST_KEYS + ("inputs_digest", "outputs_digest")}
     assert vec["outputs_digest"] == rec.sha256_json(outputs)
+
+
+def test_mesh_vector_file_is_current(rec):
+    vec = json.loads(rec.MESH_OUT.read_text())
+    host = rec.mesh_inputs()
+    assert {key: vec[key] for key in rec.MESH_HOST_KEYS} == host
+    assert vec["inputs_digest"] == rec.sha256_json(host)
+    outputs = {key: vec[key] for key in vec
+               if key not in rec.MESH_HOST_KEYS + ("inputs_digest", "outputs_digest")}
+    assert vec["outputs_digest"] == rec.sha256_json(outputs)
+    assert set(vec["mesh_out"]) == {str(w) for w in rec.MESH_WORLDS}

@@ -4,7 +4,9 @@ The reference (``zkevm_tpu``) stores field elements as ``(..., 16)``
 uint32 arrays of 16-bit limbs; the port as ``(..., 8)`` int32 words. Both
 hold the same 256-bit integers (Montgomery form, R = 2^256), so conversion
 is a repack. These helpers take and return numpy arrays and tensors only;
-nothing here imports the reference package.
+nothing here imports the reference package. The two that make tensors
+(``limbs16_to_words``, ``params_from_numpy``) put them on the card unless the
+caller passes ``device="cpu"``, as every entry point of the port does.
 """
 
 from __future__ import annotations
@@ -12,14 +14,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from zkevm_tpu_torch.device import resolve_device
 from zkevm_tpu_torch.ff import field as ff
 from zkevm_tpu_torch.kzg.params import ParamsKZG
 from zkevm_tpu_torch.plonk.assign import Assignment
 
 
-def limbs16_to_words(a, device="cpu") -> torch.Tensor:
+def limbs16_to_words(a, device=None) -> torch.Tensor:
     """(..., 16) uint32 16-bit limbs (numpy) -> (..., 8) int32 tensor."""
-    return ff.to_tensor(ff.words_from_limbs16(a), device)
+    return ff.to_tensor(ff.words_from_limbs16(a), resolve_device(device))
 
 
 def words_to_limbs16(t) -> np.ndarray:
@@ -42,7 +45,7 @@ def keccak_state_to_lohi(t: torch.Tensor) -> np.ndarray:
     return np.stack([lanes & np.uint64(0xFFFFFFFF), lanes >> np.uint64(32)], axis=-1).astype(np.uint32)
 
 
-def params_from_numpy(g1_x, g1_y, g1_z, g2, s_g2, device="cpu") -> ParamsKZG:
+def params_from_numpy(g1_x, g1_y, g1_z, g2, s_g2, device=None) -> ParamsKZG:
     """Port ParamsKZG from the reference's SRS arrays: (n, 16) Montgomery
     Fq limbs per Jacobian coordinate, and the host G2 points."""
     pts = np.stack([ff.words_from_limbs16(c) for c in (g1_x, g1_y, g1_z)], axis=1)
@@ -50,7 +53,7 @@ def params_from_numpy(g1_x, g1_y, g1_z, g2, s_g2, device="cpu") -> ParamsKZG:
     k = n.bit_length() - 1
     if 1 << k != n:
         raise ValueError(f"SRS size {n} is not a power of two")
-    return ParamsKZG(k=k, g1_powers=ff.to_tensor(pts, device), g2=g2, s_g2=s_g2)
+    return ParamsKZG(k=k, g1_powers=ff.to_tensor(pts, resolve_device(device)), g2=g2, s_g2=s_g2)
 
 
 def columns_from_numpy(columns: dict, cs) -> dict:

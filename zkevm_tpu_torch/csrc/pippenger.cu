@@ -26,8 +26,16 @@
 //      word-major layout would touch a sector per word);
 //   3. lane merge: a halving tree over the lanes, one launch per level (the
 //      lane count padded to a power of two with identities), buckets 1..B-1;
-//   4. fold sum_b b * S_b: one thread per window, running sums from the top
-//      bucket down, into the (WD, 24) layout that zk_g1_horner reads.
+//   4. fold sum_b b * S_b, in two launches: the buckets of a window in P
+//      segments of L = min(256, 2^ceil(log2 B)) (buckets 0 and >= B count as
+//      the identity), one thread per (window, segment) keeping running sums
+//      from its top bucket down (sum_j = sum S_b, total_j = sum (b - jL) S_b);
+//      then one thread per window: U += sum_j, T += U (j > 0), R += total_j
+//      for j = P-1..0, and R + L * T (log2 L doublings) = sum_b b * S_b, into
+//      the (WD, 24) layout that zk_g1_horner reads. At c = 16 a window's
+//      65,535 buckets were one thread's serial chain of 131,070 additions;
+//      now the longest chain is 2L + 3P. With P = 1 the words equal those of
+//      a single running sum.
 // Every step adds in a fixed order, so the plain PyTorch version in
 // ec/pippenger.py reproduces the Jacobian words bit for bit.
 
@@ -111,17 +119,37 @@ __global__ void lane_halve_kernel(uint32_t* __restrict__ out, const uint32_t* __
   }
 }
 
-// wsums[w] = sum_b b * S_{w,b}: suffix += S_b, total += suffix, b = B-1..1.
-__global__ void fold_kernel(uint32_t* __restrict__ wsums, const uint32_t* __restrict__ merged,
-                            int wd, int B) {
-  for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < wd; w += gridDim.x * blockDim.x) {
+// seg[(w * P + j) * 2 + 0] = sum_j, [... + 1] = total_j over buckets
+// b = (j+1)L - 1 .. jL of window w: suffix += S_b (0 < b < B), then
+// total += suffix for b > jL.
+__global__ void fold_segments_kernel(uint32_t* __restrict__ seg, const uint32_t* __restrict__ merged,
+                                     int wd, int B, int P, int L) {
+  for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < wd * P; t += gridDim.x * blockDim.x) {
+    const int w = t / P, j = t - w * P;
     Pt suffix = pt_identity();
     Pt total = pt_identity();
-    for (int b = B - 1; b >= 1; b--) {
-      suffix = pt_add(suffix, pt_load(merged + 24 * ((i64)w * B + b)));
-      total = pt_add(total, suffix);
+    for (int b = (j + 1) * L - 1; b >= j * L; b--) {
+      if (b > 0 && b < B) suffix = pt_add(suffix, pt_load(merged + 24 * ((i64)w * B + b)));
+      if (b > j * L) total = pt_add(total, suffix);
     }
-    pt_store(wsums + 24 * w, total);
+    pt_store(seg + 48 * (i64)t, suffix);
+    pt_store(seg + 48 * (i64)t + 24, total);
+  }
+}
+
+// wsums[w] = sum_j total_j + L * sum_j j * sum_j = sum_b b * S_{w,b}.
+__global__ void fold_combine_kernel(uint32_t* __restrict__ wsums, const uint32_t* __restrict__ seg,
+                                    int wd, int P, int log_l) {
+  for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < wd; w += gridDim.x * blockDim.x) {
+    Pt u = pt_identity(), t = pt_identity(), r = pt_identity();
+    for (int j = P - 1; j >= 0; j--) {
+      const uint32_t* s = seg + 48 * ((i64)w * P + j);
+      u = pt_add(u, pt_load(s));
+      if (j > 0) t = pt_add(t, u);
+      r = pt_add(r, pt_load(s + 24));
+    }
+    for (int i = 0; i < log_l; i++) t = pt_double(t);
+    pt_store(wsums + 24 * w, pt_add(r, t));
   }
 }
 
@@ -155,10 +183,22 @@ ZK_EXPORT int zk_pip_lane_halve(void* out, const void* in, i64 m, i64 half, i64 
   return (int)cudaGetLastError();
 }
 
-// merged: (wd, B, 24), one lane; wsums: (wd, 24).
-ZK_EXPORT int zk_pip_fold(void* wsums, const void* merged, i64 wd, i64 B, void* stream) {
-  if (wd < 1 || B < 2) return (int)cudaErrorInvalidValue;
-  fold_kernel<<<zk_blocks(wd, 32), 32, 0, (cudaStream_t)stream>>>(
-      (uint32_t*)wsums, (const uint32_t*)merged, (int)wd, (int)B);
+// merged: (wd, B, 24), one lane; seg: (wd, P, 2, 24) with P * L >= B, L a
+// power of two.
+ZK_EXPORT int zk_pip_fold_segments(void* seg, const void* merged, i64 wd, i64 B, i64 P, i64 L,
+                                   void* stream) {
+  if (wd < 1 || B < 2 || P < 1 || L < 1 || (L & (L - 1)) || P * L < B || (P - 1) * L >= B)
+    return (int)cudaErrorInvalidValue;
+  fold_segments_kernel<<<zk_blocks(wd * P, 64), 64, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)seg, (const uint32_t*)merged, (int)wd, (int)B, (int)P, (int)L);
+  return (int)cudaGetLastError();
+}
+
+// seg: (wd, P, 2, 24); wsums: (wd, 24).
+ZK_EXPORT int zk_pip_fold_combine(void* wsums, const void* seg, i64 wd, i64 P, i64 log_l,
+                                  void* stream) {
+  if (wd < 1 || P < 1 || log_l < 0 || log_l > 16) return (int)cudaErrorInvalidValue;
+  fold_combine_kernel<<<zk_blocks(wd, 32), 32, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)wsums, (const uint32_t*)seg, (int)wd, (int)P, (int)log_l);
   return (int)cudaGetLastError();
 }

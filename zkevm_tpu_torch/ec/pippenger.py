@@ -11,7 +11,8 @@ lane ``i % Lw`` at step ``i // Lw``, 2^c private buckets per (window, lane)
 the fold sum_b b * S_b per window, and Horner over the windows.
 
 On CUDA tensors :func:`msm` launches ``csrc/pippenger.cu`` (digits,
-accumulate, one launch per lane-merge level, fold) and curve.cu's Horner.
+accumulate, one launch per lane-merge level, the fold's segments and their
+combination) and curve.cu's Horner.
 On CPU tensors the plain version below adds in the same order, so the two
 give the same Jacobian words: PyTorch for the accumulation and the lane
 merge (a halving tree where the reference scans), and host integers with
@@ -30,6 +31,7 @@ from zkevm_tpu_torch.ff import field as ff
 from zkevm_tpu_torch.ff.field import FQ
 
 MAX_C = 16
+FOLD_SEGMENT = 256  # buckets one thread of the fold sums (fewer when a window has fewer)
 
 
 def num_windows(c: int, num_bits: int = 256) -> int:
@@ -46,6 +48,13 @@ def lane_width(n: int, sublanes: int) -> int:
     while n % lw:
         lw //= 2
     return lw
+
+
+def fold_segments(nb: int) -> tuple[int, int]:
+    """(P, L): the fold's P segments of L buckets (L a power of two, P * L
+    >= nb) of a window of nb buckets."""
+    seg = min(FOLD_SEGMENT, 1 << (nb - 1).bit_length())
+    return -(-nb // seg), seg
 
 
 def scalar_window(scalars: torch.Tensor, w: int, c: int) -> torch.Tensor:
@@ -181,15 +190,30 @@ def _plain_msm(points: torch.Tensor, scalars: torch.Tensor, c: int = 4, num_bits
             tail = torch.cat([tail, pad])
         a, m = _add_sparse(a[:half], tail), half
     merged = _host_points(a[0])  # (wd, nb - 1), bucket b at b - 1
-    # fold sum_b b * S_b and Horner, in the kernels' order
+    # fold sum_b b * S_b by segments, and Horner, in the kernels' order
+    parts, seg = fold_segments(nb)
     acc = _IDENTITY
     wsums = []
     for w in range(wd):
-        suffix = total = _IDENTITY
-        for b in range(nb - 1, 0, -1):
-            suffix = _host_add(suffix, merged[w * (nb - 1) + b - 1])
-            total = _host_add(total, suffix)
-        wsums.append(total)
+        sums, totals = [], []
+        for j in range(parts):
+            suffix = total = _IDENTITY
+            for b in range((j + 1) * seg - 1, j * seg - 1, -1):
+                if 0 < b < nb:
+                    suffix = _host_add(suffix, merged[w * (nb - 1) + b - 1])
+                if b > j * seg:
+                    total = _host_add(total, suffix)
+            sums.append(suffix)
+            totals.append(total)
+        u = t = r = _IDENTITY
+        for j in range(parts - 1, -1, -1):
+            u = _host_add(u, sums[j])
+            if j:
+                t = _host_add(t, u)
+            r = _host_add(r, totals[j])
+        for _ in range(seg.bit_length() - 1):
+            t = _host_double(t)
+        wsums.append(_host_add(r, t))
     for w in range(wd - 1, -1, -1):
         for _ in range(c):
             acc = _host_double(acc)
@@ -222,8 +246,14 @@ def _launch_msm(points: torch.Tensor, scalars: torch.Tensor, c: int, num_bits: i
         kernels.launch("pippenger", "pippenger", "zk_pip_lane_halve", out.data_ptr(), cur.data_ptr(),
                        m, half, wd, nb)
         cur, m = out, half
+    parts, seg = fold_segments(nb)
+    sums = torch.empty(wd, parts, 2, 3, ff.W, dtype=torch.int32, device=dev)
+    kernels.launch("pippenger", "pippenger", "zk_pip_fold_segments", sums.data_ptr(), cur.data_ptr(), wd, nb,
+                   parts, seg)
+    del cur
     wsums = torch.empty(wd, 3, ff.W, dtype=torch.int32, device=dev)
-    kernels.launch("pippenger", "pippenger", "zk_pip_fold", wsums.data_ptr(), cur.data_ptr(), wd, nb)
+    kernels.launch("pippenger", "pippenger", "zk_pip_fold_combine", wsums.data_ptr(), sums.data_ptr(), wd,
+                   parts, seg.bit_length() - 1)
     out = torch.empty(3, ff.W, dtype=torch.int32, device=dev)
     kernels.launch("pippenger", "curve", "zk_g1_horner", out.data_ptr(), wsums.data_ptr(), wd, c)
     return out

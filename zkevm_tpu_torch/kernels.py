@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-LIBRARIES = ("field", "ntt", "curve", "keccak", "poseidon", "pippenger", "kzg")
+LIBRARIES = ("field", "ntt", "curve", "keccak", "poseidon", "pippenger", "kzg", "ntt4")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -48,6 +48,7 @@ KERNEL_NAMES = (
     "field_pow",
     "field_nonzero",
     "ntt",
+    "ntt4",
     "g1_add",
     "g1_scalar_mul",
     "msm",

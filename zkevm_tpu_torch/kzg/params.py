@@ -6,7 +6,8 @@ SRS is a device batch of Jacobian points ``[tau^i] G1`` (``(n, 3, 8)``);
 commitments run the params' commit engine on standard-form scalars: kernel
 C's MSM (``ec/msm.py``) unless the constructor is given another, as
 ``kzg/srs.py`` gives a loaded file the Pippenger engine (``ec/pippenger.py``)
-at k > 10. ``open_single`` computes its value and quotient with kernel H
+at k > 10, or as ``use_mesh`` installs the mesh-sharded engine
+(``parallel/mesh.py``). ``open_single`` computes its value and quotient with kernel H
 (``csrc/kzg.cu``). Pairing-side values (G2 points) are host ints, used only
 by the verifiers.
 """
@@ -25,6 +26,7 @@ from zkevm_tpu_torch.ec.msm import MSM
 from zkevm_tpu_torch.ff import field as ff
 from zkevm_tpu_torch.ff.field import FR
 from zkevm_tpu_torch.ff.goldens import FR_MOD, fr_root_of_unity
+from zkevm_tpu_torch.parallel import mesh as meshmod
 from zkevm_tpu_torch.poly import ntt as nttmod
 
 OPEN_THREADS = 256  # csrc/kzg.cu's block size
@@ -66,6 +68,23 @@ class ParamsKZG:
         g1_powers = group.scalar_mul(gen, ff.from_mont(FR, pows))
         s_g2 = pr.g2_scalar_mul(pr.G2_GEN, tau)
         return cls(k=k, g1_powers=g1_powers, g2=pr.G2_GEN, s_g2=s_g2)
+
+    def use_mesh(self, mesh=None, *, scan: bool = False) -> "ParamsKZG":
+        """Shard the commit engine over a device mesh (in place).
+
+        Replaces the engine with ``parallel.mesh.MeshMSM`` over the SRS:
+        every ``commit`` (so every commitment inside keygen and create_proof)
+        runs point-sharded over the mesh with an all_gather of the partial
+        sums. mesh=None builds ``default_mesh()`` on the params' device (a
+        process group must be initialised). Raises ValueError when n does not
+        split over the mesh (the reference asserts)."""
+        if mesh is None:
+            mesh = meshmod.default_mesh(device=self.device)
+        chips = mesh.shape["chips"]
+        if self.n % chips:
+            raise ValueError(f"use_mesh: {self.n} SRS points do not split over {chips} devices")
+        self.committer = meshmod.MeshMSM(mesh, self.g1_powers, scan=scan)
+        return self
 
     def commit(self, coeffs_mont: torch.Tensor) -> torch.Tensor:
         """Commit to a coefficient-form polynomial ((n, 8) Montgomery)."""

@@ -1,12 +1,16 @@
-"""Radix-2 NTT / iNTT over BN254 Fr (kernel B and its plain version).
+"""Radix-2 NTT / iNTT over BN254 Fr (kernel B) and the four-step NTT
+(kernel I), each with its plain version.
 
 Port of ``zkevm_tpu/poly/ntt.py`` (``_fft_core``, ``ntt``, ``intt``,
-``scale_by_powers``, ``coset_ntt``, ``coset_intt``). Arrays have shape
-``(..., n, 8)``: leading dimensions batch several polynomials through one
-transform. On CUDA the transform is the kernel in ``csrc/ntt.cu``; on the
-CPU the plain version below repeats the reference's stage loop with the
-field's plain arithmetic. Twiddle and power tables are built on the
-tensor's device by a prefix product (kernel A), cached per size.
+``scale_by_powers``, ``coset_ntt``, ``coset_intt``, and the four-step
+``ntt_t``, ``intt_t``). Arrays have shape ``(..., n, 8)``: leading
+dimensions batch several polynomials through one transform (where the
+reference bench vmaps ``ntt_t``). On CUDA the radix-2 transform is the
+kernel in ``csrc/ntt.cu`` and the four-step one the three passes of
+``csrc/ntt4.cu`` (column pass, row pass, transpose); on the CPU the plain
+versions below repeat the reference's stage loop with the field's plain
+arithmetic. Twiddle and power tables are built on the tensor's device by a
+prefix product (kernel A), cached per size.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from zkevm_tpu_torch.ff.field import FR
 from zkevm_tpu_torch.ff.goldens import FR_MOD, fr_root_of_unity
 
 SHARED_LOG = 10  # stages run in shared memory: tiles of 2^10 elements
+FOURSTEP_MIN_K = 8  # ntt_t: one radix-2 transform at k <= 7, four steps above
+SUB_LOG_MAX = 12  # kernel I holds one sub-transform of up to 2^12 elements in shared memory
 
 
 def power_table(base: int, n: int, device) -> torch.Tensor:
@@ -102,8 +108,7 @@ def ntt(a: torch.Tensor, k: int | None = None) -> torch.Tensor:
 def intt(a: torch.Tensor, k: int | None = None) -> torch.Tensor:
     """Evaluations -> coefficients (includes the 1/n scaling)."""
     k = _log2(a) if k is None else k
-    out = fft_core(a, k, inverse=True)
-    return ff.mont_mul(FR, out, FR.const(pow(1 << k, FR_MOD - 2, FR_MOD), a.device))
+    return ff.mont_mul(FR, fft_core(a, k, inverse=True), _n_inv(k, a.device))
 
 
 def scale_by_powers(a: torch.Tensor, base: int) -> torch.Tensor:
@@ -121,4 +126,159 @@ def coset_intt(a: torch.Tensor, shift: int) -> torch.Tensor:
     return scale_by_powers(intt(a), pow(shift, FR_MOD - 2, FR_MOD))
 
 
-PLAIN = {"fft": _plain_fft}
+# ---------------------------------------------------------------------------
+# Four-step NTT (kernel I and its plain version)
+# ---------------------------------------------------------------------------
+
+def fourstep_split(k: int) -> tuple[int, int]:
+    """(k1, k2): the (2^k1, 2^k2) matrix view of a 2^k transform."""
+    return k // 2, k - k // 2
+
+
+def _n_inv(k: int, device) -> torch.Tensor:
+    return FR.const(pow(1 << k, FR_MOD - 2, FR_MOD), device)
+
+
+def _sub_table(tw: torch.Tensor, k: int, sub: int) -> torch.Tensor:
+    """Powers of the 2^sub-th root from the table of the 2^k-th one."""
+    return tw[:: 1 << (k - sub)]
+
+
+def _plain_cols(a: torch.Tensor, k: int, c0: int = 0, inverse: bool = False) -> torch.Tensor:
+    tw = _omega_powers(k, inverse, str(a.device))
+    batch, n1, ncols, _ = a.shape
+    k1 = n1.bit_length() - 1
+    x = a.movedim(-3, -2)  # (batch, ncols, n1, 8): the columns along dim -2
+    if k1:
+        x = _plain_fft(x, k1, _sub_table(tw, k, k1))
+    x = x.movedim(-2, -3)
+    e = torch.arange(n1)[:, None] * torch.arange(c0, c0 + ncols)[None, :]  # < 2^k
+    half = max((1 << k) // 2, 1)
+    low = tw[(e % half).reshape(-1).to(tw.device)].reshape(n1, ncols, ff.W)
+    powers = torch.where((e >= half)[..., None].to(tw.device),
+                         ff.PLAIN["sub"](FR, torch.zeros_like(low), low), low)  # w^(n/2) = -1
+    return ff.PLAIN["mul"](FR, x, powers)
+
+
+def _launch_cols(a: torch.Tensor, k: int, c0: int, tw: torch.Tensor) -> torch.Tensor:
+    batch, n1, ncols, _ = a.shape
+    ld = a.stride(1) // ff.W
+    if (a.dtype != torch.int32 or a.stride(3) != 1 or a.stride(2) != ff.W or a.stride(1) % ff.W
+            or (batch > 1 and a.stride(0) != n1 * a.stride(1)) or a.data_ptr() % 16):
+        raise ValueError(f"ntt4 column pass: expected int32 rows of 8-word elements, strides {a.stride()}")
+    out = torch.empty(batch, n1, ncols, ff.W, dtype=torch.int32, device=a.device)
+    kernels.launch("ntt4", "ntt4", "zk_ntt4_cols", out.data_ptr(), a.data_ptr(), tw.data_ptr(), k,
+                   n1.bit_length() - 1, ld, ncols, c0, batch)
+    return out
+
+
+def ntt4_cols(a: torch.Tensor, k: int, c0: int = 0, inverse: bool = False) -> torch.Tensor:
+    """Column pass of a 2^k four-step transform: a (batch, n1, ncols, 8)
+    (a view of columns c0 .. c0 + ncols of (n1, n2) matrices) -> the size-n1
+    transform of every column, output row r times w^(r * (c0 + c)); a new
+    (batch, n1, ncols, 8) tensor."""
+    k1 = a.shape[1].bit_length() - 1 if a.dim() == 4 else -1
+    if (k1 < 0 or a.shape[3] != ff.W or 1 << k1 != a.shape[1] or k1 > min(k, SUB_LOG_MAX)
+            or c0 < 0 or c0 + a.shape[2] > (1 << k) >> k1):
+        raise ValueError(f"ntt4 column pass: bad shape {tuple(a.shape)} for k={k}, c0={c0}")
+    if a.device.type == "cpu":
+        return _plain_cols(a, k, c0, inverse)
+    return _launch_cols(a, k, c0, _omega_powers(k, inverse, str(a.device)))
+
+
+def _row_view(a: torch.Tensor, rows: int, n2: int, parts: int) -> torch.Tensor:
+    """The rows of a buffer of ``parts`` blocks of (rows, n2 / parts)."""
+    return a.reshape(parts, rows, n2 // parts, ff.W).transpose(0, 1).reshape(rows, n2, ff.W)
+
+
+def _plain_rows(a: torch.Tensor, k: int, k2: int, parts: int = 1, inverse: bool = False) -> torch.Tensor:
+    n2 = 1 << k2
+    tw = _omega_powers(k, inverse, str(a.device))
+    x = _plain_fft(_row_view(a, a.numel() // (ff.W * n2), n2, parts), k2, _sub_table(tw, k, k2))
+    return ff.PLAIN["mul"](FR, x, _n_inv(k, a.device)) if inverse else x
+
+
+def _launch_rows(a: torch.Tensor, k: int, k2: int, parts: int, tw: torch.Tensor, scale) -> torch.Tensor:
+    kernels.check_cuda_tensor("ntt4 row pass input", a, torch.int32, ff.W)
+    rows = a.numel() // (ff.W << k2)
+    out = torch.empty(rows, 1 << k2, ff.W, dtype=torch.int32, device=a.device)
+    kernels.launch("ntt4", "ntt4", "zk_ntt4_rows", out.data_ptr(), a.data_ptr(), tw.data_ptr(),
+                   0 if scale is None else scale.data_ptr(), k, k2, rows, parts)
+    return out
+
+
+def ntt4_rows(a: torch.Tensor, k: int, k2: int, parts: int = 1, inverse: bool = False) -> torch.Tensor:
+    """Row pass of a 2^k four-step transform (k2 = k for the one-pass
+    transform of k <= 7): ``a`` holds rows of n2 = 2^k2 elements, given as
+    ``parts`` blocks of (rows, n2 / parts), one after another (contiguous
+    rows when parts = 1) -> (rows, n2, 8), the size-n2 transform of every
+    row, times 1/2^k for an inverse."""
+    n2 = 1 << k2
+    if (a.shape[-1] != ff.W or a.numel() % (ff.W * n2) or not 1 <= k2 <= min(k, SUB_LOG_MAX)
+            or parts < 1 or parts & (parts - 1) or n2 % parts):
+        raise ValueError(f"ntt4 row pass: bad shape {tuple(a.shape)} for k={k}, k2={k2}, parts={parts}")
+    if a.device.type == "cpu":
+        return _plain_rows(a, k, k2, parts, inverse)
+    tw = _omega_powers(k, inverse, str(a.device))
+    return _launch_rows(a.contiguous(), k, k2, parts, tw, _n_inv(k, a.device) if inverse else None)
+
+
+def _plain_transpose(a: torch.Tensor) -> torch.Tensor:
+    return a.transpose(1, 2).contiguous()
+
+
+def ntt4_transpose(a: torch.Tensor) -> torch.Tensor:
+    """(batch, R, S, 8) -> (batch, S, R, 8), the last step of the four-step
+    transform."""
+    if a.dim() != 4 or a.shape[3] != ff.W:
+        raise ValueError(f"ntt4 transpose: expected (batch, R, S, 8), got {tuple(a.shape)}")
+    if a.device.type == "cpu":
+        return _plain_transpose(a)
+    a = a.contiguous()
+    kernels.check_cuda_tensor("ntt4 transpose input", a, torch.int32, ff.W)
+    batch, r, s, _ = a.shape
+    out = torch.empty(batch, s, r, ff.W, dtype=torch.int32, device=a.device)
+    kernels.launch("ntt4", "ntt4", "zk_ntt4_transpose", out.data_ptr(), a.data_ptr(), r, s, batch)
+    return out
+
+
+def _fourstep(a: torch.Tensor, k: int, inverse: bool, cols, rows, transpose) -> torch.Tensor:
+    if not 0 <= k <= 2 * SUB_LOG_MAX:
+        raise ValueError(f"ntt_t: k={k} outside [0, {2 * SUB_LOG_MAX}], the sizes the sub-transforms hold")
+    n = 1 << k
+    if a.shape[-2] != n or a.shape[-1] != ff.W:
+        raise ValueError(f"ntt_t: expected (..., {n}, 8), got {tuple(a.shape)}")
+    lead = a.shape[:-2]
+    x = a.reshape(-1, n, ff.W)
+    if n == 1:
+        return a.clone()
+    if k < FOURSTEP_MIN_K:
+        out = rows(x, k, k, inverse=inverse)
+    else:
+        k1, k2 = fourstep_split(k)
+        b = cols(x.reshape(-1, 1 << k1, 1 << k2, ff.W), k, inverse=inverse)
+        b = rows(b, k, k2, inverse=inverse)
+        out = transpose(b.reshape(-1, 1 << k1, 1 << k2, ff.W))
+    return out.reshape(*lead, n, ff.W)
+
+
+def ntt_t(a: torch.Tensor, k: int, inverse: bool = False) -> torch.Tensor:
+    """The four-step NTT of (..., 2^k, 8) Montgomery words, natural order in
+    and out (the reference's limbs-first ``ntt_t`` on the port's layout): one
+    transform at k <= 7; above, the (2^(k//2), 2^(k - k//2)) view's column
+    pass with its twiddle, row pass and transpose. The inverse scales by
+    1/2^k."""
+    return _fourstep(a, k, inverse, ntt4_cols, ntt4_rows, ntt4_transpose)
+
+
+def intt_t(a: torch.Tensor, k: int) -> torch.Tensor:
+    return ntt_t(a, k, inverse=True)
+
+
+def _plain_ntt_t(a: torch.Tensor, k: int, inverse: bool = False) -> torch.Tensor:
+    """ntt_t through the plain version of every pass, on any device."""
+    return _fourstep(a, k, inverse, _plain_cols, _plain_rows, _plain_transpose)
+
+
+PLAIN = {"fft": _plain_fft, "ntt4_cols": _plain_cols, "ntt4_rows": _plain_rows,
+         "ntt4_transpose": _plain_transpose, "ntt_t": _plain_ntt_t}
