@@ -6,7 +6,7 @@
 Phases, each printing its own lines before the last line:
 
 0. the card's name and power limit (``nvidia-smi``);
-1. build of the hand-written kernels A-I from ``zkevm_tpu_torch/csrc``;
+1. build of the hand-written kernels A-J and L from ``zkevm_tpu_torch/csrc``;
 2. every kernel against its plain PyTorch version on the card, bit for bit,
    with timings and bounds (Poseidon E also against the golden model; the
    Pippenger MSM G, unsigned and signed, at 2^12 points with zero scalars,
@@ -14,7 +14,11 @@ Phases, each printing its own lines before the last line:
    four-step NTT I at k = 7, 9 and 12, and at k = 20 on one column and
    k = 22 in a batch of 4, also against kernel B; I's column and row
    passes as rank r of a world of 2 and 4 runs them, at k = 9, 12, 20
-   and 22);
+   and 22; the lazy-13 field J over 2^20 Fq and 2^16 Fr elements, every
+   signed-scale tuple of the point formulas and op chains; L's point
+   formulas over 2^16 lanes, its MSM at 2^12 (c = 4) and 2^14 (c = 16) on
+   random and 0/1 scalars with its flag, the engine against C's MSM, and
+   the forced fallback of equal bases with equal scalars);
 3. the K=5 toy proofs, field by field against the reference proofs
    recorded in ``tests/vectors/torch_port_toy_proof.json``; then the small
    state-trie case (MPT circuit over the PoseidonTable, depth 8, k=12)
@@ -62,7 +66,18 @@ Phases, each printing its own lines before the last line:
    ``create_proof`` (every field equals phase 6's proof), ``verify_proof``
    (True, and False on a tampered eval). Launches and collectives are
    counted in two windows: the mesh functions, then the proof. A world of one measures the local engine and NCCL's
-   per-call cost, never scaling.
+   per-call cost, never scaling;
+10. the l13 path (``ec/msm13.py``, kernels J and L) at k=20 on phase 6's
+   circuit, assignment and seed: ``unsafe_setup(20, engine="l13")`` (phase
+   6's tau; the SRS converted to affine lazy-13 once), ``keygen`` (phase 6's
+   vk fingerprint), ``create_proof`` (every field equals phase 6's proof),
+   ``verify_proof`` (True, and False on a tampered eval), with its launches
+   (L > 0, C's MSM 0) and ``Msm13``'s calls and fallbacks (0); then L at
+   2^20, c = 16, lanes 4096, window groups of 8 (the reference bench's MSM)
+   against its plain version word for word, and its own result against C's
+   MSM on random and 0/1 scalars. L's boundary tree doubles where its inputs
+   are equal (every boundary past a window's largest digit holds the window
+   total), where the reference raises its doubling flag and falls back.
 
 Then one JSON line with every kernel's numbers and, last, the ok line.
 Any failure exits non-zero before the ok line. Without CUDA, or without
@@ -98,15 +113,28 @@ DBL_INT_OPS = 2 * MUL_INT_OPS + 5 * SQR_INT_OPS  # dbl-2009-l
 # One Poseidon permutation (P128Pow5T3): 80 S-boxes (2 squarings and a
 # product each) and 64 MDS applications of 9 products.
 POSEIDON_INT_OPS = 160 * SQR_INT_OPS + 656 * MUL_INT_OPS
+# The lazy-13 field (kernels J and L): one 32-bit multiply per limb product
+# (441 for a product's columns, 231 for a square's) and, per term of a
+# reduction, 42 x 164 u8 multiply-adds on the int8 tensor cores (1,979 T
+# dense ops/s, two ops a multiply-add).
+INT8_MACS_PER_S = 1979e12 / 2
+L13_MUL, L13_SQR, L13_TERM_MACS = 441, 231, 42 * 164
+# (multiplies, reduction terms) of ec/msm13.py's point formulas
+L13_MADD = (7 * L13_MUL + 4 * L13_SQR, 15)
+L13_ADD = (11 * L13_MUL + 5 * L13_SQR, 20)
+L13_DBL = (2 * L13_MUL + 5 * L13_SQR, 9)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound(nbytes: float, int_ops: float) -> tuple[float, str]:
+def bound(nbytes: float, int_ops: float, macs: float = 0) -> tuple[float, str]:
+    """The least time for the work: bytes over the memory rate, 32-bit
+    multiplies over the int32 rate or u8 multiply-adds over the int8
+    tensor-core rate, the largest."""
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = int_ops / INT32_OPS_PER_S * 1e3
+    t_ops = max(int_ops / INT32_OPS_PER_S, macs / INT8_MACS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -142,13 +170,15 @@ class Report:
         "kzg_open": ("zkevm_tpu_torch/csrc/kzg.cu", "zkevm_tpu/kzg/params.py:198"),
         "ntt4": ("zkevm_tpu_torch/csrc/ntt4.cu", "zkevm_tpu/poly/ntt.py:185"),
         "mesh": ("zkevm_tpu_torch/parallel/mesh.py", "zkevm_tpu/parallel/mesh.py:280"),
+        "lazy13": ("zkevm_tpu_torch/csrc/lazy13.cu", "zkevm_tpu/ff/lazy13.py:436"),
+        "msm13": ("zkevm_tpu_torch/csrc/msm13.cu", "zkevm_tpu/ec/msm13.py:340"),
     }
 
     def __init__(self):
         self.rows: dict[str, dict] = {}
 
-    def record(self, name, shape, err, ms, plain_ms, nbytes, int_ops, library_ms=None):
-        b, by = bound(nbytes, int_ops)
+    def record(self, name, shape, err, ms, plain_ms, nbytes, int_ops, library_ms=None, macs=0):
+        b, by = bound(nbytes, int_ops, macs)
         src, rep = self.SOURCES[name]
         self.rows[name] = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -237,6 +267,58 @@ def pippenger_int_ops(torch, scalars, c: int, signed: bool, sublanes: int = 1024
     full = filled - groups + (2 * (nb - 1) + combine_adds) * wd + wd - 1
     dbls = (wd - 1) * c + combine_dbls * wd
     return (nonzero - filled) * MADD_INT_OPS + full * ADD_INT_OPS + dbls * DBL_INT_OPS
+
+
+def msm13_tree_work(torch, scalars, c: int) -> tuple[int, int, int]:
+    """(boundaries with no smaller digit, tree nodes with an identity input,
+    tree nodes with equal inputs) of kernel L's MSM on these scalars: the
+    first are the identity and the second a copy, no addition; the third a
+    doubling. A boundary's prefix sum is fixed by its position in the
+    window's sorted digits, a tree node's by its inputs' (identities drop
+    out), so equal positions are equal points."""
+    from zkevm_tpu_torch.ec import msm13 as m13
+
+    sd = torch.sort(m13.digit_windows(scalars, c), dim=1).values.contiguous()
+    B = 1 << c
+    t = torch.arange(1, B, dtype=sd.dtype, device=sd.device).expand(sd.shape[0], B - 1).contiguous()
+    ids = torch.searchsorted(sd, t) - 1  # -1: the identity
+    neg = int((ids < 0).sum().item())
+    m = 1
+    while m < B - 1:
+        m *= 2
+    ids = torch.cat([ids, ids.new_full((ids.shape[0], m - (B - 1)), -1)], dim=1)
+    ident = equal = 0
+    while m > 1:
+        m //= 2
+        a, b = ids[:, :m], ids[:, m:2 * m]
+        ident += int(((a < 0) | (b < 0)).sum().item())
+        equal += int(((a == b) & (a >= 0)).sum().item())
+        top = int(ids.max().item()) + 1
+        _, fresh = torch.unique(a * top + b, return_inverse=True)
+        ids = torch.where(a < 0, b, torch.where(b < 0, a, top + fresh))
+    return neg, ident, equal
+
+
+def msm13_work(torch, scalars, c: int, lanes: int = 4096, wgroup: int = 8) -> tuple[int, int, int]:
+    """(bytes, 32-bit multiplies, u8 multiply-adds) of kernel L's MSM over
+    these scalars: per window n mixed additions, Lw + A for the lane-offset
+    scans, Lw for their combination, the B - 1 boundaries and the m - 1 tree
+    nodes less those that need no addition or only a doubling on this data
+    (``msm13_tree_work``), c + 1 additions and c doublings for (B - 1) Total
+    - sum PS; the Horner's c doublings and one addition per window. Bytes:
+    each base (168) and scalar (32) read once."""
+    from zkevm_tpu_torch.ec import msm13 as m13
+
+    n = scalars.shape[0]
+    g = m13.geometry(n, c, lanes, wgroup)
+    w = g["W"]
+    neg, ident, equal = msm13_tree_work(torch, scalars, c)
+    madds = w * n
+    adds = w * (2 * g["Lw"] + g["A"] + g["B"] - 1 + g["m"] - 1 + c + 2) - neg - ident - equal
+    dbls = 2 * w * c + equal
+    muls = madds * L13_MADD[0] + adds * L13_ADD[0] + dbls * L13_DBL[0]
+    macs = (madds * L13_MADD[1] + adds * L13_ADD[1] + dbls * L13_DBL[1]) * L13_TERM_MACS
+    return 200 * n + 3 * 84, muls, macs
 
 
 # one Montgomery product per factor of f_i * w^i * d_i and of (f_i - f(z)) * d_i,
@@ -370,7 +452,7 @@ class CompositeMeter:
         setattr(owner, name, self._wrap(key, fn, cost))
 
     def __enter__(self):
-        from zkevm_tpu_torch.ec import msm as msmmod, pippenger as pip
+        from zkevm_tpu_torch.ec import msm as msmmod, msm13 as m13, pippenger as pip
         from zkevm_tpu_torch.parallel import mesh as pm
         from zkevm_tpu_torch.plonk import prover as prv, shplonk
         from zkevm_tpu_torch.poly.domain import Domain
@@ -426,6 +508,7 @@ class CompositeMeter:
         count_msm(pip.PippengerMSM, lambda e, sc: pippenger_int_ops(torch, sc, e.c, False, e.sublanes))
         count_msm(pm.MeshMSM, lambda e, sc: scalar_mul_int_ops(torch, sc) if e.scan else
                   pippenger_int_ops(torch, sc, e.c, False, MESH_SUBLANES))
+        count_msm(m13.Msm13, lambda e, sc: msm13_work(torch, sc, e.c, e.lanes, e.wgroup)[1])
         return self
 
     def __exit__(self, *exc):
@@ -796,6 +879,202 @@ def phase_kzg_open(torch, rep: Report, gen, rng, dev, k: int = 20) -> None:
     rep.record("kzg_open", f"({n}, 8) Fr", err, ms, pms, 128 * n + 32, OPEN_INT_OPS * n)
 
 
+def random_lazy13(torch, ctx, n, gen, dev):
+    """(21, n) int32 lazy-13 values: limbs 0..19 random 13-bit, limb 20 below
+    8 (value < 2^263), with 0, 1 and p - 1, the largest value below 2^263
+    and quasi-canonical limbs (2^13 + 2^6 - 1) among them."""
+    from zkevm_tpu_torch.ff import lazy13 as lz
+
+    a = torch.randint(0, 1 << 13, (lz.L13, n), generator=gen, dtype=torch.int32)
+    a[20] = torch.randint(0, 8, (n,), generator=gen, dtype=torch.int32)
+    a[:, :3] = ctx.tensor([0, 1, ctx.p - 1], "cpu")
+    a[:20, 3], a[20, 3] = (1 << 13) - 1, 7
+    a[:20, 4], a[20, 4] = (1 << 13) + (1 << 6) - 1, 6
+    return a.to(dev)
+
+
+def by_chunks(torch, fn, n: int, chunk: int = 1 << 16):
+    """fn(slice) over [0, n) in chunks, concatenated on the last axis, with
+    its seconds (the plain versions' memory grows with 441 x the batch)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = torch.cat([fn(slice(i, min(i + chunk, n))) for i in range(0, n, chunk)], dim=-1)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def phase_lazy13(torch, rep: Report, gen, dev, n: int = 1 << 20, n_fr: int = 1 << 16, chain: int = 40) -> None:
+    """Kernel J's entry points against their plain versions word for word:
+    over n lazy Fq elements and n_fr lazy Fr elements (edge values among
+    them), every signed-scale tuple of the point formulas, and op chains
+    whose outputs are fed back as inputs."""
+    from zkevm_tpu_torch.ff import lazy13 as lz
+
+    P = lz.PLAIN
+    scales = [(1,), (2,), (3,), (4,), (2, -2), (1, -8), (1, -1, -1), (2, -2, -2), (4, -4, -8)]
+    timed = {}
+    for ctx, m in ((lz.ctx_fq(), n), (lz.ctx_fr(), n_fr)):
+        a = random_lazy13(torch, ctx, m, gen, dev)
+        b = random_lazy13(torch, ctx, m, gen, dev).flip(1).contiguous()
+        d = torch.where(torch.arange(m, device=dev) % 5 == 0, lz.sub13(ctx, a, a), a)  # zeros among them
+        canon_in = lz.mul13(ctx, a, b)
+        cases = [
+            ("mul13", lambda: lz.mul13(ctx, a, b), lambda sl: P["mul"](ctx, a[:, sl], b[:, sl])),
+            ("sqr13", lambda: lz.sqr13(ctx, a), lambda sl: P["sqr"](ctx, a[:, sl])),
+            ("add13", lambda: lz.add13(ctx, a, b), lambda sl: P["add"](ctx, a[:, sl], b[:, sl])),
+            ("sub13", lambda: lz.sub13(ctx, a, b), lambda sl: P["sub"](ctx, a[:, sl], b[:, sl])),
+            ("canon13", lambda: lz.canon13(ctx, canon_in), lambda sl: P["canon"](ctx, canon_in[:, sl])),
+            ("is_zero13", lambda: lz.is_zero13(ctx, d), lambda sl: P["is_zero"](ctx, d[:, sl])),
+            ("prod_T", lambda: lz.prod_T(a, b), lambda sl: P["prod_T"](a[:, sl], b[:, sl])),
+            ("sqr_T", lambda: lz.sqr_T(a), lambda sl: P["prod_T"](a[:, sl], a[:, sl])),
+            ("to_words", lambda: lz.to_words(lz.canon13(ctx, canon_in)).T,
+             lambda sl: P["to_words"](P["canon"](ctx, canon_in[:, sl])).T),
+        ]
+        words = lz.to_words(lz.canon13(ctx, a))
+        cases.append(("from_words", lambda: lz.from_words(words), lambda sl: P["from_words"](words[sl])))
+        for name, kern, plain in cases:
+            got = kern()
+            want, secs = by_chunks(torch, plain, m)
+            check_equal(f"lazy13 {ctx.spec.name} {name}", max_abs_err(torch, got, want))
+            if ctx is lz.ctx_fq() and name == "mul13":
+                timed["mul13"] = (cuda_ms(torch, kern), secs * 1e3)
+        if not bool(lz.is_zero13(ctx, lz.sub13(ctx, a, a)).all()) or bool(lz.is_zero13(ctx, a[:, 1:2]).any()):
+            raise AssertionError(f"lazy13 {ctx.spec.name}: x - x is not zero, or 1 is")
+        k = min(m, 1 << 16)
+        for sc in scales:
+            xs = [random_lazy13(torch, ctx, k, gen, dev) for _ in range(len(sc) + 1)]
+            kt = [(lz.prod_T(xs[i], xs[i + 1]), s) for i, s in enumerate(sc)]
+            check_equal(f"lazy13 {ctx.spec.name} combine_reduce {sc}",
+                        max_abs_err(torch, lz.combine_reduce(ctx, kt), P["combine"](ctx, kt)))
+        # chains: each op's output is the next op's input (invariants kept)
+        x, y = a[:, :k].contiguous(), b[:, :k].contiguous()
+        px, py = x.clone(), y.clone()
+        for step in range(chain):
+            op = step % 4
+            if op == 0:
+                x, px = lz.mul13(ctx, x, y), P["mul"](ctx, px, py)
+            elif op == 1:
+                x, px = lz.sub13(ctx, x, y), P["sub"](ctx, px, py)
+            elif op == 2:
+                y, py = lz.add13(ctx, x, y), P["add"](ctx, px, py)
+            else:
+                y, py = lz.combine_reduce(ctx, [(lz.prod_T(x, y), 4), (lz.sqr_T(x), -8)]), \
+                    P["combine"](ctx, [(P["prod_T"](px, py), 4), (P["prod_T"](px, px), -8)])
+        check_equal(f"lazy13 {ctx.spec.name} chain of {chain} ops",
+                    max(max_abs_err(torch, x, px), max_abs_err(torch, y, py)))
+        if int(x.max()) >= (1 << 13) + (1 << 6) or int(y.max()) >= (1 << 13) + (1 << 6):
+            raise AssertionError(f"lazy13 {ctx.spec.name}: a chain left the quasi-canonical limb range")
+        log(f"  lazy13 {ctx.spec.name}: mul13 sqr13 add13 sub13 canon13 is_zero13 prod_T sqr_T to_words "
+            f"from_words equal the plain version on {m} elements (edges among them), combine_reduce for "
+            f"the {len(scales)} scale tuples, a chain of {chain} ops")
+    ms, pms = timed["mul13"]
+    rep.record("lazy13", f"mul13 (21, {n}) Fq", 0, ms, pms, 3 * 84 * n, L13_MUL * n, macs=L13_TERM_MACS * n)
+    rep.rows["lazy13"]["add13_ms"] = cuda_ms(torch, lambda: lz.add13(lz.ctx_fq(), a, b))
+
+
+def phase_msm13(torch, rep: Report, rng, dev, lanes: int = 1 << 16,
+                cases=((1 << 12, 4), (1 << 14, 16))) -> None:
+    """Kernel L against its plain version word for word: madd_l, add_l and
+    double_l over ``lanes`` lanes (identity, equal and opposite lanes among
+    them); the MSM at 2^12 points, c = 4, and at 2^14, c = 16 (lanes 4096,
+    window groups of 8) with zero scalars, r - 1 and repeated bases, its
+    flag included, and the engine (L's own result unless the flag fell back)
+    against C's MSM by affine points, on random and on 0/1 scalars (whose
+    boundary trees double nearly every node); the forced flag of equal bases
+    with equal scalars."""
+    from zkevm_tpu_torch.ec import group, msm as msmmod, msm13 as m13
+    from zkevm_tpu_torch.ff import field as ff, lazy13 as lz
+    from zkevm_tpu_torch.ff.goldens import FR_MOD
+    from zkevm_tpu_torch.kzg import ParamsKZG
+
+    ctx = lz.ctx_fq()
+    pts = ParamsKZG.unsafe_setup(lanes.bit_length() - 1, device=dev).g1_powers  # distinct points
+    ax, ay = m13.affine_l13(pts)
+    one = torch.zeros_like(ax)
+    one[0] = 1
+    none = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    aff = m13.G1L(ax, ay, one, none)
+    p = m13.double_l(aff)  # Jacobian, z != 1
+    q = m13.G1L(torch.roll(ax, 1, 1), torch.roll(ay, 1, 1), one, none.clone())
+    q = m13.add_l(q, m13.G1L(torch.roll(ax, 2, 1), torch.roll(ay, 2, 1), one, none))[0]
+    inf = torch.arange(lanes, device=dev) % 97 == 0
+    p = m13.G1L(p.x, p.y, p.z, inf)
+    q.inf[5] = True
+    for k in ("x", "y", "z"):
+        getattr(q, k)[:, 7] = getattr(p, k)[:, 7]  # the same point
+    q.y[:, 9] = lz.sub13(ctx, torch.zeros_like(p.y[:, 9:10]), p.y[:, 9:10])[:, 0]  # its negation
+    for k in ("x", "z"):
+        getattr(q, k)[:, 9] = getattr(p, k)[:, 9]
+    pl, ql = m13._flat_pt(p), m13._flat_pt(q)
+    # madd_l's leaf is affine: lane 13 of its accumulator is that leaf (z = 1)
+    pm = m13.G1L(*(c.clone() for c in (p.x, p.y, p.z)), p.inf)
+    pm.x[:, 13], pm.y[:, 13], pm.z[:, 13] = q.x[:, 13], q.y[:, 13], one[:, 13]
+    pml = m13._flat_pt(pm)
+
+    def same_words(got, want):
+        return max([max_abs_err(torch, getattr(got, k), getattr(want, k)) for k in ("x", "y", "z")]
+                   + [int((got.inf != want.inf).sum().item())])
+
+    r, f_add = m13.add_l(p, q)
+    (rp, fp), add_pms = plain_ms_of(torch, lambda: m13.PLAIN["add_l"](pl, ql))
+    check_equal(f"msm13 add_l on {lanes} lanes", same_words(r, rp) + abs(f_add - int(fp)))
+    r, f_madd = m13.madd_l(pm, q.x, q.y)
+    rp, fp = m13.PLAIN["madd_l"](pml, ql.x, ql.y)
+    check_equal(f"msm13 madd_l on {lanes} lanes", same_words(r, rp) + abs(f_madd - int(fp)))
+    check_equal(f"msm13 double_l on {lanes} lanes", same_words(m13.double_l(p), m13.PLAIN["double_l"](pl)))
+    if (f_add, f_madd) != (1, 1):
+        raise AssertionError(f"msm13: the equal lanes raised doubling flags {f_add}, {f_madd}")
+    add_ms = cuda_ms(torch, lambda: m13.add_l(p, q))
+    log(f"  msm13 add_l, madd_l and double_l equal the plain version on {lanes} lanes (identity, equal "
+        f"and opposite lanes; flags too); add_l {add_ms:.4f} ms")
+
+    timed = {}
+    for n, c in cases:
+        ks = _random_scalars(n, rng)
+        ks[0], ks[1] = 0, FR_MOD - 1
+        bases = pts[:n].clone()
+        bases[3] = bases[2]  # repeated bases, with other scalars
+        bases[11] = bases[10]
+        engine = m13.Msm13(bases, c=c)
+        c_msm = msmmod.MSM(bases)
+        flags = []
+        for label, sc in (("random", ff.to_tensor(ff.words_from_ints(ks), dev)),
+                          ("0/1", ff.to_tensor(ff.words_from_ints(list(rng.integers(0, 2, n))), dev))):
+            got, flag = m13.msm13(engine.ax13, engine.ay13, sc, c=c)
+            (want, wflag), pms = plain_ms_of(torch, lambda: m13.PLAIN["msm13"](engine.ax13, engine.ay13, sc, c,
+                                                                               254, 4096, 8))
+            check_equal(f"msm13 n={n} c={c} ({label} scalars)", same_words(got, want) + abs(flag - wflag))
+            before = engine.fallbacks
+            if group.to_affine_ints(engine(sc)[None]) != group.to_affine_ints(c_msm(sc)[None]) \
+                    or engine.fallbacks - before != flag:
+                raise AssertionError(f"Msm13 n={n} c={c} ({label} scalars) differs from C's msm, "
+                                     "or its fallback was not counted")
+            flags.append(flag)
+            if label == "random":
+                timed[(n, c)] = (cuda_ms(torch, lambda: m13.msm13(engine.ax13, engine.ay13, sc, c=c), reps=3), pms,
+                                 flag, msm13_work(torch, sc, c))
+        log(f"  msm13 n={n} c={c} equals its plain version word for word on random and 0/1 scalars (flags "
+            f"{flags}); Msm13 equals C's msm on both (fallbacks {engine.fallbacks})")
+    # the forced flag: every base equal, every scalar equal
+    bases = pts[:1].expand(64, 3, 8).contiguous()
+    sc = ff.to_tensor(ff.words_from_ints([_random_scalars(1, rng)[0]] * 64), dev)
+    engine = m13.Msm13(bases, c=4, lanes=8)
+    if m13.msm13(engine.ax13, engine.ay13, sc, c=4, lanes=8)[1] != 1:
+        raise AssertionError("msm13: equal bases with equal scalars raised no doubling flag")
+    forced = engine(sc)
+    if engine.fallbacks != 1 or group.to_affine_ints(forced[None]) != group.to_affine_ints(msmmod.MSM(bases)(sc)):
+        raise AssertionError("Msm13: the forced fallback was not counted or differs from C's msm")
+    log("  msm13: equal bases with equal scalars raise the flag; Msm13 falls back, counts it, equals C's msm")
+    (n4, c4), (n, c) = cases
+    ms, pms, flag, work = timed[(n, c)]
+    rep.record("msm13", f"msm13 n={n}, c={c}, lanes=4096, wgroup=8", 0, ms, pms, *work[:2], macs=work[2])
+    b4, by4 = bound(*timed[(n4, c4)][3])
+    rep.rows["msm13"].update({f"n{n4}_c{c4}_ms": timed[(n4, c4)][0], f"n{n4}_c{c4}_plain_ms": timed[(n4, c4)][1],
+                              f"n{n4}_c{c4}_bound_ms": b4, f"n{n4}_c{c4}_bound_by": by4,
+                              "add_l_ms": add_ms, "add_l_plain_ms": add_pms,
+                              "flags": {f"n{n4}_c{c4}": timed[(n4, c4)][2], f"n{n}_c{c}": flag}})
+
+
 def phase_keccak(torch, rep: Report, gen, dev, n: int = 4096) -> None:
     from zkevm_tpu_torch.hash import keccak as kk
 
@@ -1147,7 +1426,7 @@ def main_shape_entry(name, shape, ms, plain_s, plain_on, nbytes, int_ops, librar
 
 def phase_main_shapes(torch, rep: Report, gen, rng, dev, params, domain, *, width: int = 64,
                       batch: int = 16, row_chunk: int = 1 << 14, lanes_checked: int = 1 << 14,
-                      msm_chunk: int = 1 << 16) -> None:
+                      msm_chunk: int = 1 << 18) -> None:
     from zkevm_tpu_torch.ec import goldens as g1g, group, msm as msmmod
     from zkevm_tpu_torch.ff.goldens import fr_root_of_unity
     from zkevm_tpu_torch.ff import field as ff
@@ -1836,6 +2115,135 @@ def phase_mesh(torch, rep: Report, gen, rng, dev, seed: int, mpt: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the l13 path (the reference's default engine on its accelerator,
+# ec/msm13.py) at size k, on phase 6's circuit, assignment and seed
+# ---------------------------------------------------------------------------
+
+L13_PATH_KERNELS = ("field_mul", "field_add_sub", "field_pow", "ntt", "g1_scalar_mul", "lazy13", "msm13")
+
+
+def phase_l13(torch, rep: Report, rng, dev, seed: int, mpt: dict) -> dict:
+    import copy
+
+    from zkevm_tpu_torch import kernels
+    from zkevm_tpu_torch.ec import group, msm as msmmod, msm13 as m13
+    from zkevm_tpu_torch.ff import field as ff, lazy13 as lz
+    from zkevm_tpu_torch.ff.field import FR
+    from zkevm_tpu_torch.kzg import ParamsKZG
+    from zkevm_tpu_torch.plonk import create_proof, keygen, verify_proof
+    from zkevm_tpu_torch.plonk.prover import proof_to_json
+    from zkevm_tpu_torch.prover import vk_fingerprint
+    from zkevm_tpu_torch.transcript import PoseidonTranscript
+
+    times = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        log(f"  {name}: {times[name]:.1f} s")
+        return out
+
+    k = MAIN_K
+    n = 1 << k
+    cs, asg = mpt["cs"], mpt["asg"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    calls = []
+    call = m13.Msm13.__call__
+
+    def counted(engine, scalars):
+        calls.append(scalars.shape[0])
+        return call(engine, scalars)
+
+    m13.Msm13.__call__ = counted
+    try:
+        with CompositeMeter(torch) as meter:
+            params = step("unsafe_setup", lambda: ParamsKZG.unsafe_setup(k, tau=SETUP_TAU, device=dev, engine="l13"))
+            pk = step("keygen", lambda: keygen(params, cs, asg))
+            proof = step("create_proof", lambda: create_proof(params, pk, [], asg, seed=seed,
+                                                              transcript=PoseidonTranscript()))
+            ok = step("verify_proof", lambda: verify_proof(params, pk.vk, [], proof, transcript=PoseidonTranscript()))
+    finally:
+        m13.Msm13.__call__ = call
+    launches = kernels.launch_counts()
+    engine = params.committer
+    proof_fallbacks = engine.fallbacks
+    log(f"  launches: {json.dumps(launches)}")
+    log(f"  composites: {json.dumps(meter.summary())}")
+    log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log(f"  Msm13 calls {len(calls)} (of {sorted(set(calls))} points), fallbacks {engine.fallbacks}")
+    if not isinstance(engine, m13.Msm13) or (engine.c, engine.lanes, engine.wgroup) != (16, 4096, 8):
+        raise AssertionError(f"unsafe_setup(engine='l13'): engine {engine!r}")
+    if vk_fingerprint(pk.vk) != mpt["vk_fingerprint"]:
+        raise AssertionError("the l13-committed keygen gives another vk fingerprint than phase 6's")
+    got = proof_to_json(proof)
+    bad_fields = [f for f in got if got[f] != mpt["proof"][f]]
+    if bad_fields:
+        raise AssertionError(f"l13 proof fields differ from phase 6's proof: {bad_fields}")
+    if not ok:
+        raise AssertionError("verify_proof rejected the l13-committed proof")
+    bad = copy.deepcopy(proof)
+    bad.evals[0] = (bad.evals[0] + 1) % FR.modulus
+    if verify_proof(params, pk.vk, [], bad, transcript=PoseidonTranscript()):
+        raise AssertionError("verify_proof accepted a tampered eval (l13)")
+    missing = [name for name in L13_PATH_KERNELS if launches[name] == 0]
+    if missing or launches["msm"] or not calls or proof_fallbacks:
+        raise AssertionError(f"l13 path: kernels never launched {missing}, C's msm launched {launches['msm']} "
+                             f"times, {len(calls)} Msm13 calls, {proof_fallbacks} fallbacks")
+    log(f"  engine Msm13 (c=16, lanes 4096, wgroup 8): {launches['msm13']} launches of L, "
+        f"{proof_fallbacks} fallbacks; vk fingerprint and all {len(got)} proof fields equal phase 6's; "
+        "proof verified, tampered eval rejected")
+
+    # kernel L at the path's shape: the reference bench's MSM (2^20 points,
+    # c = 16, lanes 4096, window groups of 8) against its plain version word
+    # for word on random scalars, and L's own result against C's MSM by
+    # affine points on random and 0/1 scalars, with no flag
+    sc = ff.to_tensor(ff.words_from_ints(_random_scalars(n, rng)), dev)
+    bits = ff.to_tensor(ff.words_from_ints(list(rng.integers(0, 2, n))), dev)
+    got_l, flag = m13.msm13(engine.ax13, engine.ay13, sc)
+    (want, wflag), pms = plain_ms_of(torch, lambda: m13.PLAIN["msm13"](engine.ax13, engine.ay13, sc, 16, 254, 4096, 8))
+    err = max([max_abs_err(torch, getattr(got_l, c), getattr(want, c)) for c in ("x", "y", "z")]
+              + [int((got_l.inf != want.inf).sum().item()), abs(flag - wflag)])
+    check_equal(f"msm13 at n={n}, c=16", err)
+    del want
+    c_msm = msmmod.MSM(params.g1_powers)
+    for label, s_ in (("random", sc), ("0/1", bits)):
+        own, oflag = (got_l, flag) if s_ is sc else m13.msm13(engine.ax13, engine.ay13, s_)
+        if oflag or group.to_affine_ints(m13.to_point(own)) != group.to_affine_ints(c_msm(s_)[None]):
+            raise AssertionError(f"msm13 at n={n}, c=16 ({label} scalars): flag {oflag}, or its own result "
+                                 "differs from C's msm")
+    ms16 = cuda_ms(torch, lambda: m13.msm13(engine.ax13, engine.ay13, sc), reps=3)
+    c_ms = cuda_ms(torch, lambda: c_msm(sc), reps=3)
+    log(f"  msm13 at n={n}, c=16 equals its plain version word for word (flag {flag}; plain {pms / 1e3:.1f} s) "
+        f"and C's msm on random and 0/1 scalars: {ms16:.2f} ms (C's msm {c_ms:.2f} ms)")
+    # kernel J at the path's shape: the SRS's affine coordinates into lazy-13
+    # limbs (from_words over the 2^20 x of the engine), against its plain version
+    ax_words = lz.to_words(engine.ax13)
+    jerr = max_abs_err(torch, lz.from_words(ax_words), engine.ax13)
+    (jwant, jpms) = plain_ms_of(torch, lambda: by_chunks(torch, lambda sl: lz.PLAIN["from_words"](ax_words[sl]), n)[0])
+    jerr = max(jerr, max_abs_err(torch, lz.from_words(ax_words), jwant))
+    check_equal(f"lazy13 from_words at n={n}", jerr)
+    rep.rows["lazy13"].update(main_shape_entry(
+        "lazy13", f"from_words ({n}, 8) -> (21, {n}) Fq", cuda_ms(torch, lambda: lz.from_words(ax_words)),
+        jpms / 1e3, "whole, 2^16 at a time", (32 + 84) * n, 0))
+    b, by = bound(*msm13_work(torch, sc, 16))
+    rep.rows["msm13"].update({
+        "main_shape": f"msm13 n={n}, c=16, lanes=4096, wgroup=8 (the l13 engine's, the reference bench's)",
+        "main_shape_ms": ms16, "main_shape_max_abs_err": err, "main_shape_plain_ms": pms,
+        "main_shape_plain_on": "whole", "main_shape_bound_ms": b, "main_shape_bound_by": by,
+        "main_shape_held_to": "its plain version, word for word (random scalars), and C's msm by affine point "
+                              "(random and 0/1 scalars), flag 0",
+        "main_shape_flag": flag, "c_msm_ms": c_ms,
+        "proof_calls": len(calls), "proof_fallbacks": proof_fallbacks,
+    })
+    return {"times": times, "launches": launches, "composites": meter.summary(), "calls": len(calls)}
+
+
+# ---------------------------------------------------------------------------
 
 
 def card_line() -> str:
@@ -1881,6 +2289,8 @@ def main(argv=None) -> int:
     phase_nonzero(torch, rep, gen, dev)
     phase_pippenger(torch, rep, rng, dev)
     phase_kzg_open(torch, rep, gen, rng, dev)
+    phase_lazy13(torch, rep, gen, dev)
+    phase_msm13(torch, rep, rng, dev)
     log(f"phase kernels: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
@@ -1926,6 +2336,12 @@ def main(argv=None) -> int:
     for window, counts in windows.items():
         paths[window] = counts["launches"]
     log(f"phase mesh: {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    l13_path = phase_l13(torch, rep, rng, dev, args.seed, mpt_reuse)
+    paths["l13"] = l13_path["launches"]
+    log(f"phase l13: {time.perf_counter() - t:.1f} s")
 
     # launches: the sum over the main paths, each counted from zero over
     # its own run, with the count of each path beside it (the mesh path in

@@ -1,8 +1,8 @@
 """Record reference vectors from the JAX package for the PyTorch port.
 
-Usage: python scripts/record_torch_vectors.py [toy|mpt|kzg|mesh ...]
+Usage: python scripts/record_torch_vectors.py [toy|mpt|kzg|mesh|l13 ...]
 
-Runs ``zkevm_tpu`` on the CPU and writes four files (all by default).
+Runs ``zkevm_tpu`` on the CPU and writes five files (all by default).
 
 ``tests/vectors/torch_port_toy_proof.json``: for the K=5 toy circuit of
 ``tests/test_plonk.py`` and for a two-phase toy circuit with one
@@ -53,6 +53,23 @@ with ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` and a JAX cache
 of its own under ``build/`` (that mode's cache entries must not reach a
 normal process). ``inputs_digest`` and ``outputs_digest`` bind them as in
 the MPT file.
+
+``tests/vectors/torch_port_l13.json``: the lazy-13 point formulas and MSM
+(``ec/msm13.py``). Its inputs are made from fixed seeds: lazy Jacobian
+points (13-bit limbs of x + m*p for small m, so not canonical) for
+``add_l``, ``double_l`` and ``madd_l``, with lanes at the identity, equal
+and opposite points, each formula once on lanes that raise no doubling
+flag and once with a lane that does; the bases and scalars of
+``tests/test_msm13.py`` at (n, c, lanes, wgroup) = (16, 4, 4, 32),
+(64, 4, 8, 64) and (16, 16, 4, 4); and a 16-point SRS (``unsafe_setup(4,
+tau=777)``). Its outputs are the reference's lazy words and flags: each
+formula's result, each MSM's window sums per window group and its Horner
+result, and ``Msm13``'s ``ax13`` / ``ay13`` of the SRS. The reference runs
+in a subprocess with a JAX cache of its own under ``build/``, its MSMs
+under ``jax.disable_jit()`` (compiled, ``_window_sums`` takes tens of GB of
+XLA:CPU memory; eager, about 20 minutes each and little memory: the same
+integer ops). ``inputs_digest`` and ``outputs_digest`` bind them as in the
+MPT file.
 """
 
 from __future__ import annotations
@@ -93,6 +110,11 @@ NTT_BATCH = (4, 5)  # polynomials, k
 MESH_MSM_C = 4
 COMMIT_K = 5  # the dryrun's commit stage
 FORCED_HOST_CACHE = ROOT / "build" / "jax_cache_forced_host"
+L13_OUT = ROOT / "tests" / "vectors" / "torch_port_l13.json"
+L13_HOST_KEYS = ("ops", "msm", "srs")
+L13_CACHE = ROOT / "build" / "jax_cache_l13"
+L13_MSM_CASES = ((16, 4, 4, 32), (64, 4, 8, 64), (16, 16, 4, 4))  # tests/test_msm13.py's shapes
+L13_SRS = (4, 777)  # k, tau
 HASH_LENGTHS = (1, 2, 3, 5)
 TAU = 0xDEAD_BEEF_CAFE  # the reference's default unsafe_setup tau
 TOY_SEED = 7
@@ -483,14 +505,171 @@ def record_mesh() -> dict:
     return {**host, "inputs_digest": sha256_json(host), **outputs, "outputs_digest": sha256_json(outputs)}
 
 
+def _limbs13(v: int) -> list[int]:
+    return [(v >> (13 * i)) & 0x1FFF for i in range(21)]
+
+
+def l13_inputs() -> dict:
+    """The cheap inputs of the lazy-13 vector, made from fixed seeds. A
+    point lane is [x, y, z, inf] with each coordinate as 21 13-bit limbs of
+    a lazy value v + m*q < 2^263 (strict limbs, value not reduced)."""
+    sys.path.insert(0, str(ROOT))
+    from zkevm_tpu_torch.ec import goldens as g1g
+    from zkevm_tpu_torch.ff.goldens import FQ_MOD, FR_MOD
+
+    rng = np.random.default_rng(37)
+    q = FQ_MOD
+
+    def lazy(v):
+        return _limbs13(v % q + int(rng.integers(0, 400)) * q)
+
+    def jac(pt):
+        """Affine (x, y) or None -> a Jacobian lane with a random z."""
+        if pt is None:
+            return [_limbs13(1), _limbs13(1), _limbs13(0), True]
+        z = int(rng.integers(1, 1 << 62)) ** 4 % q
+        return [lazy(pt[0] * z * z), lazy(pt[1] * z * z * z), lazy(z), False]
+
+    def affine(pt):
+        return [lazy(pt[0]), lazy(pt[1])]
+
+    pts = [g1g.random_point(rng) for _ in range(8)]
+    others = [g1g.random_point(rng) for _ in range(8)]
+    # add_l lanes: 0-3 generic, 4 p = identity, 5 q = identity, 6 both, 7 q = -p
+    ap = [pts[0], pts[1], pts[2], pts[3], None, pts[5], None, pts[7]]
+    aq = [others[0], others[1], others[2], others[3], others[4], None, None, g1g.neg(pts[7])]
+    # and a call with a doubling lane (2: q = p in another z)
+    dp = [pts[0], pts[1], pts[2], pts[3]]
+    dq = [others[0], others[1], pts[2], others[3]]
+    # madd_l lanes: 0-3 generic, 4 acc = identity, 5 leaf = -acc; then a
+    # call whose lane 1 has leaf = acc
+    mp = [pts[0], pts[1], pts[2], pts[3], None, pts[5]]
+    mq = [others[0], others[1], others[2], others[3], others[4], g1g.neg(pts[5])]
+    mp2 = [pts[0], pts[1], pts[2]]
+    mq2 = [others[0], pts[1], others[2]]
+    ops = {
+        "add": {"p": [jac(v) for v in ap], "q": [jac(v) for v in aq]},
+        "add_dbl": {"p": [jac(v) for v in dp], "q": [jac(v) for v in dq]},
+        "double": {"p": [jac(v) for v in ap]},
+        "madd": {"p": [jac(v) for v in mp], "q": [affine(v) for v in mq]},
+        "madd_dbl": {"p": [jac(v) for v in mp2], "q": [affine(v) for v in mq2]},
+    }
+    msm = []
+    for n, c, lanes, wgroup in L13_MSM_CASES:
+        r = np.random.default_rng(7)  # tests/test_msm13.py's bases and scalars
+        base_ks = [int(r.integers(1, 1 << 60)) for _ in range(n)]
+        scal = [int.from_bytes(r.bytes(31), "little") % FR_MOD for _ in range(n)]
+        scal[0], scal[1] = 0, FR_MOD - 1
+        msm.append({"n": n, "c": c, "lanes": lanes, "wgroup": wgroup,
+                    "points": [list(g1g.scalar_mul(g1g.G1_GEN, k)) for k in base_ks], "scalars": scal})
+    return {"ops": ops, "msm": msm, "srs": {"k": L13_SRS[0], "tau": L13_SRS[1]}}
+
+
+def _l13_reference(host: dict) -> dict:
+    """The reference's lazy-13 outputs on ``host`` (run in a subprocess
+    with a JAX cache of its own)."""
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_compilation_cache_dir", str(L13_CACHE))
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    sys.path.insert(0, str(ROOT))
+    from zkevm_tpu.ec import group, group_t, msm13 as rm
+    from zkevm_tpu.ff import limbs
+    from zkevm_tpu.kzg import ParamsKZG
+
+    def words(a):
+        return np.asarray(a, dtype=np.uint32).T.astype(int).tolist()  # (21, B) -> B lists of 21
+
+    def g1l(lanes):
+        coords = [jnp.asarray(np.array([ln[i] for ln in lanes], dtype=np.uint32).T) for i in range(3)]
+        return rm.G1L(*coords, jnp.asarray(np.array([ln[3] for ln in lanes], dtype=bool)))
+
+    def lanes_of(p):
+        return {"x": words(p.x), "y": words(p.y), "z": words(p.z),
+                "inf": [bool(v) for v in np.asarray(p.inf)]}
+
+    out = {"ops": {}}
+    for name, case in host["ops"].items():
+        p = g1l(case["p"])
+        if name.startswith("add"):
+            r, f = rm.add_l(p, g1l(case["q"]))
+        elif name == "double":
+            r, f = rm.double_l(p), None
+        else:
+            qx = jnp.asarray(np.array([ln[0] for ln in case["q"]], dtype=np.uint32).T)
+            qy = jnp.asarray(np.array([ln[1] for ln in case["q"]], dtype=np.uint32).T)
+            r, f = rm.madd_l(p, qx, qy)
+        out["ops"][name] = {**lanes_of(r), "flag": None if f is None else int(np.asarray(f))}
+        progress(f"l13: {name} recorded")
+    out["msm"] = []
+    with jax.disable_jit():
+        for case in host["msm"]:
+            n, c, lanes, wgroup = case["n"], case["c"], case["lanes"], case["wgroup"]
+            pts = group_t.from_g1(group.from_affine_ints([tuple(p) for p in case["points"]]))
+            eng = rm.Msm13(pts, c=c, lanes=lanes, wgroup=wgroup)
+            scalars = jnp.asarray(limbs.limbs_from_ints(case["scalars"]), jnp.uint32)
+            # msm13's own steps, with the window sums of each group kept
+            W = (254 + c - 1) // c
+            lw = min(lanes, n)
+            while n % lw:
+                lw //= 2
+            digits = jnp.stack([limbs.scalar_window(scalars, w, c) for w in range(W)])
+            iota = jnp.broadcast_to(jnp.arange(n, dtype=jnp.uint32)[None], (W, n))
+            sd, perm = jax.lax.sort((digits, iota), dimension=1, num_keys=1)
+            groups, gx, gy, gz, gi = [], [], [], [], []
+            for g0 in range(0, W, wgroup):
+                g1 = min(g0 + wgroup, W)
+                pg = perm[g0:g1].reshape(-1)
+                px = jnp.take(eng.ax13, pg, axis=1).reshape(21, g1 - g0, lw, n // lw)
+                py = jnp.take(eng.ay13, pg, axis=1).reshape(21, g1 - g0, lw, n // lw)
+                x, y, z, inf, f = rm._window_sums(px, py, sd[g0:g1], c)
+                groups.append(int(np.asarray(f)))
+                gx.append(x), gy.append(y), gz.append(z), gi.append(inf)
+            gx, gy, gz = (jnp.concatenate(v, axis=1) for v in (gx, gy, gz))
+            gi = jnp.concatenate(gi, axis=0)
+            acc, f = rm._horner_full(gx, gy, gz, gi, c)
+            aff = group.to_affine_ints(group_t.to_g1(rm.to_g1t(acc)))[0]
+            out["msm"].append({
+                "windows": {"x": words(gx), "y": words(gy), "z": words(gz),
+                            "inf": [bool(v) for v in np.asarray(gi)]},
+                "group_flags": groups,
+                "result": {**lanes_of(acc), "flag": int(np.asarray(f)) | max(groups)},
+                "affine": None if aff is None else [int(aff[0]), int(aff[1])],
+            })
+            progress(f"l13: msm13 {(n, c, lanes, wgroup)} recorded")
+    k, tau = host["srs"]["k"], host["srs"]["tau"]
+    params = ParamsKZG.unsafe_setup(k, tau=tau, windowed=False)
+    eng = rm.Msm13(group_t.from_g1(params.g1_powers), c=4, lanes=4, wgroup=8)
+    out["srs"] = {"ax13": words(eng.ax13), "ay13": words(eng.ay13)}
+    progress("l13: Msm13 ax13 / ay13 recorded")
+    return out
+
+
+def record_l13() -> dict:
+    """The lazy-13 vector: the reference's outputs, from a subprocess (slow:
+    about an hour, its MSMs run eagerly)."""
+    host = l13_inputs()
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, __file__, "l13-reference"], input=json.dumps(host),
+                          stdout=subprocess.PIPE, text=True, env=env, cwd=ROOT, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the lazy-13 recording failed (rc {proc.returncode})")
+    outputs = {f"{key}_out": v for key, v in json.loads(proc.stdout.strip().splitlines()[-1]).items()}
+    return {**host, "inputs_digest": sha256_json(host), **outputs, "outputs_digest": sha256_json(outputs)}
+
+
 def main(argv=None) -> int:
-    which = (argv if argv is not None else sys.argv[1:]) or ["toy", "mpt", "kzg", "mesh"]
+    which = (argv if argv is not None else sys.argv[1:]) or ["toy", "mpt", "kzg", "mesh", "l13"]
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     if which == ["mesh-forced-host"]:  # the subprocess of record_mesh
         print(json.dumps(_mesh_forced_host(json.loads(sys.stdin.read()))))
+        return 0
+    if which == ["l13-reference"]:  # the subprocess of record_l13
+        print(json.dumps(_l13_reference(json.loads(sys.stdin.read()))))
         return 0
     if "toy" in which:
         OUT.write_text(json.dumps(record(), indent=1) + "\n")
@@ -504,6 +683,9 @@ def main(argv=None) -> int:
     if "mesh" in which:
         MESH_OUT.write_text(json.dumps(record_mesh(), indent=1) + "\n")
         print(f"wrote {MESH_OUT}")
+    if "l13" in which:
+        L13_OUT.write_text(json.dumps(record_l13(), indent=1) + "\n")
+        print(f"wrote {L13_OUT}")
     return 0
 
 

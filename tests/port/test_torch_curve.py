@@ -28,7 +28,7 @@ def test_add_and_double_match_reference(rng):
     qts = [g.random_point(rng) for _ in range(8)] + [g.G1_GEN, None]
     pts += [pts[0], pts[1]]  # same point (doubling path), opposite points
     qts += [pts[0], g.neg(pts[1])]
-    P, Q = group.from_affine_ints(pts), group.from_affine_ints(qts)
+    P, Q = group.from_affine_ints(pts, "cpu"), group.from_affine_ints(qts, "cpu")
     JP, JQ = jgroup.from_affine_ints(pts), jgroup.from_affine_ints(qts)
     want = jgroup.to_affine_ints(jgroup.add(JP, JQ))
     assert group.to_affine_ints(group.add(P, Q)) == want == [g.add(a, b) for a, b in zip(pts, qts)]
@@ -48,7 +48,7 @@ def test_add_cases_match_golden(rng, case):
     lhs, rhs = {"P+Q": (p, q), "P+O": (p, None), "O+P": (None, p), "O+O": (None, None),
                 "P+P": (p, p), "P+-P": (p, g.neg(p)), "G+2G": (g.G1_GEN, g.double(g.G1_GEN)),
                 "-P+P": (g.neg(p), p)}[case]
-    got = group.add(group.from_affine_ints([lhs]), group.from_affine_ints([rhs]))
+    got = group.add(group.from_affine_ints([lhs], "cpu"), group.from_affine_ints([rhs], "cpu"))
     assert group.to_affine_ints(got) == [g.add(lhs, rhs)]
 
 
@@ -56,7 +56,7 @@ def test_add_cases_match_golden(rng, case):
 def test_double_and_neg_match_golden(rng, case):
     p = g.random_point(rng)
     pt = {"P": p, "O": None, "G": g.G1_GEN, "-P": g.neg(p)}[case]
-    jac = group.from_affine_ints([pt])
+    jac = group.from_affine_ints([pt], "cpu")
     assert group.to_affine_ints(group.double(jac)) == [g.double(pt)]
     assert group.to_affine_ints(group.neg(jac)) == [g.neg(pt)]
 
@@ -66,7 +66,7 @@ def test_scalar_mul_matches_golden(rng):
     scalar_mul is cross-checked through unsafe_setup below)."""
     pts = [g.random_point(rng) for _ in range(4)] + [None]
     ks = [0, 1, 2, int(rng.integers(1, 1 << 62)) * g.R // (1 << 62) + 12345, g.R - 1]
-    out = group.scalar_mul(group.from_affine_ints(pts), _scalars(ks))
+    out = group.scalar_mul(group.from_affine_ints(pts, "cpu"), _scalars(ks))
     assert group.to_affine_ints(out) == [g.scalar_mul(p, k) for p, k in zip(pts, ks)]
 
 
@@ -96,12 +96,12 @@ def test_msm_edge_cases_match_golden(rng):
     pts[1] = None  # identity base
     pts[5] = pts[6] = pts[4]  # repeated bases, equal digits: the doubling case
     ks[5] = ks[4]
-    assert group.to_affine_ints(msm.msm(group.from_affine_ints(pts), _scalars(ks))) == [g.msm(pts, ks)]
+    assert group.to_affine_ints(msm.msm(group.from_affine_ints(pts, "cpu"), _scalars(ks))) == [g.msm(pts, ks)]
 
 
 def test_msm_skewed_digits_match_golden(rng):
     n = 33
     pts = [g.random_point(rng) for _ in range(n)]
     ks = [int(rng.integers(0, 2)) for _ in range(n)]  # 0/1 scalars: one crowded bucket
-    got = msm.msm(group.from_affine_ints(pts), _scalars(ks))
+    got = msm.msm(group.from_affine_ints(pts, "cpu"), _scalars(ks))
     assert group.to_affine_ints(got) == [g.msm(pts, ks)]

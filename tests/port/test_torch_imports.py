@@ -1,7 +1,9 @@
 """The port never imports JAX or the reference package: every ``.py`` under
 ``zkevm_tpu_torch/``, ``chip_smoke.py`` and the mesh tests' rank module
 ``tests/port/_mesh_worker.py`` (the spawned ranks must not import JAX),
-parsed with ``ast``."""
+parsed with ``ast``. Every CUDA source under ``zkevm_tpu_torch/csrc`` is a
+library that ``kernels.py`` builds, with a plain C interface (no PyTorch
+header)."""
 
 import ast
 from pathlib import Path
@@ -40,6 +42,24 @@ def _banned(name: str) -> bool:
 def test_port_files_found():
     assert len(FILES) > 40 and (ROOT / "zkevm_tpu_torch" / "hash" / "poseidon.py") in FILES
     assert (ROOT / "zkevm_tpu_torch" / "parallel" / "mesh.py") in FILES
+    assert (ROOT / "zkevm_tpu_torch" / "ff" / "lazy13.py") in FILES
+    assert (ROOT / "zkevm_tpu_torch" / "ec" / "msm13.py") in FILES
+
+
+CSRC = sorted((ROOT / "zkevm_tpu_torch" / "csrc").glob("*.cu*"))
+
+
+def test_cuda_sources_are_built_libraries():
+    from zkevm_tpu_torch import kernels
+
+    assert sorted(p.stem for p in CSRC if p.suffix == ".cu") == sorted(kernels.LIBRARIES)
+    assert {"lazy13", "msm13"} <= set(kernels.LIBRARIES) and {"lazy13", "msm13"} <= set(kernels.KERNEL_NAMES)
+
+
+@pytest.mark.parametrize("path", CSRC, ids=lambda p: p.name)
+def test_cuda_source_includes_no_torch_header(path):
+    includes = [ln for ln in path.read_text().splitlines() if ln.startswith("#include")]
+    assert includes and not [ln for ln in includes if "torch" in ln or "ATen" in ln or "c10" in ln], includes
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -109,6 +109,6 @@ def test_transcript_challenges_match_reference(rng):
     assert got == want
     # a point tensor absorbs like its affine pair
     t1, t2 = KeccakTranscript("cpu"), KeccakTranscript("cpu")
-    t1.common_point(group.from_affine_ints([pts[0]])[0])
+    t1.common_point(group.from_affine_ints([pts[0]], "cpu")[0])
     t2.common_point(pts[0])
     assert t1.challenge() == t2.challenge()

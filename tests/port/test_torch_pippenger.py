@@ -43,7 +43,7 @@ def test_msm_matches_reference(golden, i):
     inputs; n = 96 with 64 sublanes halves Lw to 32."""
     case = MSM["cases"][i]
     n = case["n"]
-    pts = group.from_affine_ints(POINTS[:n])
+    pts = group.from_affine_ints(POINTS[:n], "cpu")
     scalars = ff.to_tensor(ff.words_from_ints(MSM["scalars"][:n]), "cpu")
     got = pip.msm(pts, scalars, c=case["c"], sublanes=case["sublanes"], signed=case["signed"])
     want = VEC["msm_results"][i]
@@ -53,7 +53,7 @@ def test_msm_matches_reference(golden, i):
 def test_engine_matches_msm():
     """PippengerMSM (the loaded SRS's engine) is msm at the reference's
     defaults: c = 4, 1024 sublanes, unsigned."""
-    pts = group.from_affine_ints(POINTS[:64])
+    pts = group.from_affine_ints(POINTS[:64], "cpu")
     scalars = ff.to_tensor(ff.words_from_ints(MSM["scalars"][:64]), "cpu")
     assert torch.equal(pip.PippengerMSM(pts)(scalars), pip.msm(pts, scalars))
     assert pip.lane_width(96, 64) == 32 and pip.lane_width(96, 1024) == 96
@@ -76,7 +76,7 @@ def test_segmented_fold_matches_golden(golden, c, signed):
     """Windows of more than 256 buckets fold in several segments (c = 9: two;
     signed c = 10: 513 buckets, three, the last one ragged)."""
     assert pip.fold_segments(pip.num_buckets(c, signed))[0] > 1
-    pts = group.from_affine_ints(POINTS[:64])
+    pts = group.from_affine_ints(POINTS[:64], "cpu")
     scalars = ff.to_tensor(ff.words_from_ints(MSM["scalars"][:64]), "cpu")
     got = pip.msm(pts, scalars, c=c, sublanes=4, signed=signed)
     assert group.to_affine_ints(got) == [golden[64]]
@@ -91,7 +91,7 @@ def test_c16_fold_matches_golden(signed):
     c, nb = 16, pip.num_buckets(16, signed)
     assert pip.fold_segments(nb) == ((129, 256) if signed else (256, 256))
     low = [s % (1 << c) for s in MSM["scalars"][:64]]
-    pts = group.from_affine_ints(POINTS[:64])
+    pts = group.from_affine_ints(POINTS[:64], "cpu")
     scalars = ff.to_tensor(ff.words_from_ints(low), "cpu")
     got = pip.msm(pts, scalars, c=c, num_bits=c, sublanes=4, signed=signed)
     assert group.to_affine_ints(got) == [g.msm(POINTS[:64], low)]

@@ -9,6 +9,9 @@ again, with the digests that bind the reference's SRS files, ``msm_t``
 results and opening to them; of the mesh vector
 (``tests/vectors/torch_port_mesh.json``) the inputs, made again, with the
 digests that bind the reference's ``ntt_t`` and forced-host mesh outputs to
+them; of the lazy-13 vector (``tests/vectors/torch_port_l13.json``) the
+inputs, made again, with the digests that bind the reference's point
+formulas, ``msm13`` window sums and results and ``Msm13`` conversion to
 them."""
 
 import importlib.util
@@ -64,3 +67,15 @@ def test_mesh_vector_file_is_current(rec):
                if key not in rec.MESH_HOST_KEYS + ("inputs_digest", "outputs_digest")}
     assert vec["outputs_digest"] == rec.sha256_json(outputs)
     assert set(vec["mesh_out"]) == {str(w) for w in rec.MESH_WORLDS}
+
+
+def test_l13_vector_file_is_current(rec):
+    vec = json.loads(rec.L13_OUT.read_text())
+    host = rec.l13_inputs()
+    assert {key: vec[key] for key in rec.L13_HOST_KEYS} == host
+    assert vec["inputs_digest"] == rec.sha256_json(host)
+    outputs = {key: vec[key] for key in vec
+               if key not in rec.L13_HOST_KEYS + ("inputs_digest", "outputs_digest")}
+    assert set(outputs) == {f"{key}_out" for key in rec.L13_HOST_KEYS}
+    assert vec["outputs_digest"] == rec.sha256_json(outputs)
+    assert [len(case["windows"]["inf"]) for case in vec["msm_out"]] == [64, 64, 16]

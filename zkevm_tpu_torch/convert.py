@@ -3,10 +3,12 @@
 The reference (``zkevm_tpu``) stores field elements as ``(..., 16)``
 uint32 arrays of 16-bit limbs; the port as ``(..., 8)`` int32 words. Both
 hold the same 256-bit integers (Montgomery form, R = 2^256), so conversion
-is a repack. These helpers take and return numpy arrays and tensors only;
-nothing here imports the reference package. The two that make tensors
-(``limbs16_to_words``, ``params_from_numpy``) put them on the card unless the
-caller passes ``device="cpu"``, as every entry point of the port does.
+is a repack. Lazy-13 values (``ff/lazy13.py``) are ``(21, ...)`` in both, the
+reference's uint32 and the port's int32, the same words. These helpers take
+and return numpy arrays and tensors only; nothing here imports the reference
+package. The three that make tensors (``limbs16_to_words``,
+``l13_from_reference``, ``params_from_numpy``) put them on the card unless
+the caller passes ``device="cpu"``, as every entry point of the port does.
 """
 
 from __future__ import annotations
@@ -31,6 +33,21 @@ def words_to_limbs16(t) -> np.ndarray:
         t = t.detach().cpu().numpy()
     w = np.asarray(t).astype(np.uint32)
     return np.stack([w & 0xFFFF, w >> 16], axis=-1).reshape(*w.shape[:-1], 16).astype(np.uint32)
+
+
+def l13_from_reference(a, device=None) -> torch.Tensor:
+    """(21, ...) uint32 lazy-13 limbs (the reference's) -> (21, ...) int32 tensor."""
+    a = np.asarray(a, dtype=np.uint32)
+    if a.ndim < 1 or a.shape[0] != 21:
+        raise ValueError(f"lazy-13 values must be (21, ...), got {a.shape}")
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32).copy()).to(resolve_device(device))
+
+
+def l13_to_reference(t) -> np.ndarray:
+    """(21, ...) lazy-13 limbs (tensor or numpy) -> (21, ...) uint32, the reference's layout."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t).astype(np.int64).astype(np.uint32)
 
 
 def keccak_state_from_lohi(a) -> torch.Tensor:
@@ -88,6 +105,8 @@ __all__ = [
     "columns_to_reference",
     "keccak_state_from_lohi",
     "keccak_state_to_lohi",
+    "l13_from_reference",
+    "l13_to_reference",
     "limbs16_to_words",
     "params_from_numpy",
     "words_to_limbs16",

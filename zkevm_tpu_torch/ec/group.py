@@ -15,6 +15,7 @@ from functools import lru_cache
 import torch
 
 from zkevm_tpu_torch import kernels
+from zkevm_tpu_torch.device import resolve_device
 from zkevm_tpu_torch.ff import field as ff
 from zkevm_tpu_torch.ff.field import FQ
 
@@ -23,7 +24,10 @@ _add = ff.PLAIN["add"]
 _sub = ff.PLAIN["sub"]
 
 
-def identity(batch_shape=(), device="cpu") -> torch.Tensor:
+def identity(batch_shape=(), device=None) -> torch.Tensor:
+    """(..., 3, 8) identity points (x = y = 1, z = 0) on ``device`` (CUDA
+    unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     one = FQ.mont_one(device)
     out = torch.zeros(*batch_shape, 3, ff.W, dtype=torch.int32, device=device)
     out[..., 0, :] = one
@@ -31,8 +35,10 @@ def identity(batch_shape=(), device="cpu") -> torch.Tensor:
     return out
 
 
-def from_affine_ints(pts, device="cpu") -> torch.Tensor:
-    """List of (x, y) int pairs (None = identity) -> (N, 3, 8) Jacobian."""
+def from_affine_ints(pts, device=None) -> torch.Tensor:
+    """List of (x, y) int pairs (None = identity) -> (N, 3, 8) Jacobian on
+    ``device`` (CUDA unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     rows = []
     for pt in pts:
         if pt is None:

@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-LIBRARIES = ("field", "ntt", "curve", "keccak", "poseidon", "pippenger", "kzg", "ntt4")
+LIBRARIES = ("field", "ntt", "curve", "keccak", "poseidon", "pippenger", "kzg", "ntt4", "lazy13", "msm13")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -56,6 +56,8 @@ KERNEL_NAMES = (
     "poseidon",
     "pippenger",
     "kzg_open",
+    "lazy13",
+    "msm13",
 )
 _counts = {name: 0 for name in KERNEL_NAMES}
 _lock = threading.Lock()

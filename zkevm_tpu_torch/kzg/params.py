@@ -5,8 +5,11 @@ Port of ``zkevm_tpu/kzg/params.py`` (``ParamsKZG.unsafe_setup``,
 SRS is a device batch of Jacobian points ``[tau^i] G1`` (``(n, 3, 8)``);
 commitments run the params' commit engine on standard-form scalars: kernel
 C's MSM (``ec/msm.py``) unless the constructor is given another, as
-``kzg/srs.py`` gives a loaded file the Pippenger engine (``ec/pippenger.py``)
-at k > 10, or as ``use_mesh`` installs the mesh-sharded engine
+``unsafe_setup`` does at k > 10 when asked for another engine (by name, as
+the reference reads ``ZKEVM_TPU_MSM``: "l13" the lazy-13 MSM of
+``ec/msm13.py``, "ps" C's, "pippenger" the Pippenger MSM of
+``ec/pippenger.py``), as ``kzg/srs.py`` gives a loaded file the Pippenger
+engine at k > 10, or as ``use_mesh`` installs the mesh-sharded engine
 (``parallel/mesh.py``). ``open_single`` computes its value and quotient with kernel H
 (``csrc/kzg.cu``). Pairing-side values (G2 points) are host ints, used only
 by the verifiers.
@@ -15,13 +18,14 @@ by the verifiers.
 from __future__ import annotations
 
 import ctypes
+import os
 from dataclasses import dataclass, field
 
 import torch
 
 from zkevm_tpu_torch import kernels
 from zkevm_tpu_torch.device import resolve_device
-from zkevm_tpu_torch.ec import goldens as g1g, group, pairing as pr
+from zkevm_tpu_torch.ec import goldens as g1g, group, msm13, pairing as pr, pippenger as pip
 from zkevm_tpu_torch.ec.msm import MSM
 from zkevm_tpu_torch.ff import field as ff
 from zkevm_tpu_torch.ff.field import FR
@@ -30,6 +34,10 @@ from zkevm_tpu_torch.parallel import mesh as meshmod
 from zkevm_tpu_torch.poly import ntt as nttmod
 
 OPEN_THREADS = 256  # csrc/kzg.cu's block size
+ENGINE_MIN_K = 11  # unsafe_setup picks its engine by name above k = 10, as the reference
+DEFAULT_ENGINE = "ps"  # C's MSM: the port's engine since its first slice
+ENGINES = ("l13", "ps", "pippenger")
+L13_C, L13_LANES, L13_WGROUP = 16, 4096, 8  # the reference's Msm13 geometry (unsafe_setup, bench.py)
 OPEN_MAX_BLOCKS = 1024  # partial sums the one-block finishing pass adds
 
 
@@ -56,10 +64,20 @@ class ParamsKZG:
         return self.g1_powers.device
 
     @classmethod
-    def unsafe_setup(cls, k: int, tau: int = 0xDEAD_BEEF_CAFE, *, device=None) -> "ParamsKZG":
+    def unsafe_setup(cls, k: int, tau: int = 0xDEAD_BEEF_CAFE, *, device=None, engine: str | None = None
+                     ) -> "ParamsKZG":
         """Test-only SRS from a known tau: the powers of tau by a prefix
         product, then one per-lane scalar multiplication of the generator
-        (the reference's _srs_gen)."""
+        (the reference's _srs_gen).
+
+        The commit engine at k > 10 is ``engine``, else the environment's
+        ``ZKEVM_TPU_MSM``, else "ps", with the reference's names: "l13"
+        ``msm13.Msm13`` (c = 16, lanes 4096, window groups of 8), "ps" C's
+        MSM, "pippenger" G's Pippenger MSM; another name raises ValueError.
+        At k <= 10 it is C's MSM whatever is asked."""
+        name = engine if engine is not None else os.environ.get("ZKEVM_TPU_MSM", DEFAULT_ENGINE)
+        if name not in ENGINES:
+            raise ValueError(f"unsafe_setup: unknown commit engine {name!r} (one of {ENGINES})")
         device = resolve_device(device)
         n = 1 << k
         tau %= FR_MOD
@@ -67,7 +85,13 @@ class ParamsKZG:
         gen = group.from_affine_ints([g1g.G1_GEN], device)[0]
         g1_powers = group.scalar_mul(gen, ff.from_mont(FR, pows))
         s_g2 = pr.g2_scalar_mul(pr.G2_GEN, tau)
-        return cls(k=k, g1_powers=g1_powers, g2=pr.G2_GEN, s_g2=s_g2)
+        committer = None
+        if k >= ENGINE_MIN_K:
+            if name == "l13":
+                committer = msm13.Msm13(g1_powers, c=L13_C, lanes=L13_LANES, wgroup=L13_WGROUP)
+            elif name == "pippenger":
+                committer = pip.PippengerMSM(g1_powers)
+        return cls(k=k, g1_powers=g1_powers, g2=pr.G2_GEN, s_g2=s_g2, committer=committer)
 
     def use_mesh(self, mesh=None, *, scan: bool = False) -> "ParamsKZG":
         """Shard the commit engine over a device mesh (in place).
