@@ -6,7 +6,7 @@
 Phases, each printing its own lines before the last line:
 
 0. the card's name and power limit (``nvidia-smi``);
-1. build of the hand-written kernels A-J and L from ``zkevm_tpu_torch/csrc``;
+1. build of the hand-written kernels A-J, L and M from ``zkevm_tpu_torch/csrc``;
 2. every kernel against its plain PyTorch version on the card, bit for bit,
    with timings and bounds (Poseidon E also against the golden model; the
    Pippenger MSM G, unsigned and signed, at 2^12 points with zero scalars,
@@ -18,7 +18,8 @@ Phases, each printing its own lines before the last line:
    signed-scale tuple of the point formulas and op chains; L's point
    formulas over 2^16 lanes, its MSM at 2^12 (c = 4) and 2^14 (c = 16) on
    random and 0/1 scalars with its flag, the engine against C's MSM, and
-   the forced fallback of equal bases with equal scalars);
+   the forced fallback of equal bases with equal scalars; the quotient
+   evaluator M on the toy circuit's constraints at 2^12 rows);
 3. the K=5 toy proofs, field by field against the reference proofs
    recorded in ``tests/vectors/torch_port_toy_proof.json``; then the small
    state-trie case (MPT circuit over the PoseidonTable, depth 8, k=12)
@@ -29,19 +30,26 @@ Phases, each printing its own lines before the last line:
 4. the first main path at full size: ``unsafe_setup(20)``, the KeccakTable
    circuit filled with messages made from ``--seed``, ``keygen``,
    ``create_proof``, ``verify_proof`` (True, and False on a tampered
-   eval), with the kernels' launch counts over that path;
+   eval), with the kernels' launch counts over that path (M once per
+   quotient part, no kernel-A launch and no ``torch.roll`` inside the
+   quotient); then the proof again up to its first quotient part, and M on
+   that whole part against the per-node path (one kernel-A launch per tree
+   node) word for word and against its plain version on 512 rows (the
+   first and last 64 among them);
 5. the kernels again at the shapes that path gives them (the MSM over
    2^20 points, the per-lane scalar multiplication over 2^20 lanes, the
    batched NTT at k=20 and the quotient's transforms at its extended k,
-   the quotient's (2^20, 64, 8) field broadcasts), each against its plain
-   version bit for bit, timed beside its bound;
+   the per-node quotient path's (2^20, 64, 8) field broadcasts, which M
+   replaced in the proof and the smoke still runs as M's cross-check),
+   each against its plain version bit for bit, timed beside its bound;
 6. the second main path at full size: the state trie (MPT circuit over the
    PoseidonTable) at k=20 and trie depth 248: a trie of 16 entries and 32
    chained updates made from ``--seed``, ``poseidon_states``, the table and
    MPT assignment, ``MockProver.verify`` ([], and a failure on a forged
    root), ``unsafe_setup(20)``, ``keygen``, ``create_proof`` and
    ``verify_proof`` under a PoseidonTranscript (True, and False on a
-   tampered eval), with its own launch counts;
+   tampered eval), with its own launch counts; then M on its first quotient
+   part as in phase 4;
 7. kernels E and F again at the shapes that path gives them (the trace of
    every table slot, the zero test over the MockProver's largest row set);
 8. the SRS-file path at k=20 on phase 6's circuit, assignment and seed:
@@ -172,6 +180,7 @@ class Report:
         "mesh": ("zkevm_tpu_torch/parallel/mesh.py", "zkevm_tpu/parallel/mesh.py:280"),
         "lazy13": ("zkevm_tpu_torch/csrc/lazy13.cu", "zkevm_tpu/ff/lazy13.py:436"),
         "msm13": ("zkevm_tpu_torch/csrc/msm13.cu", "zkevm_tpu/ec/msm13.py:340"),
+        "quotient": ("zkevm_tpu_torch/csrc/quotient.cu", "zkevm_tpu/plonk/prover.py:443"),
     }
 
     def __init__(self):
@@ -410,7 +419,8 @@ class CompositeMeter:
     K6 ``Domain`` divide_by_vanishing_poly / coeff_to_extended /
     extended_to_coeff; K11 the grand products' ``prefix_product``; K12 the
     quotient's ``_h_part``; K13 ``eval_polys_at`` (its powers table
-    included); K14 SHPLONK ``open_many`` (its MSMs included)."""
+    included); K14 SHPLONK ``open_many`` (its MSMs included). Inside each it
+    also counts the launches by kernel and the calls of ``torch.roll``."""
 
     KEYS = ("K6", "K11", "K12", "K13", "K14")
 
@@ -420,6 +430,8 @@ class CompositeMeter:
         self.nbytes = {k: 0 for k in self.KEYS}
         self.ops = {k: 0 for k in self.KEYS}
         self.calls = {k: 0 for k in self.KEYS}
+        self.by_kernel = {k: {} for k in self.KEYS}
+        self.rolls = {k: 0 for k in self.KEYS}
         self._active = None
         self._saved = []
 
@@ -432,12 +444,15 @@ class CompositeMeter:
             if meter._active is not None:
                 return fn(*args, **kwargs)
             meter._active = key
-            before = sum(kernels.launch_counts().values())
+            before = kernels.launch_counts()
             try:
                 out = fn(*args, **kwargs)
             finally:
                 meter._active = None
-            meter.launches[key] += sum(kernels.launch_counts().values()) - before
+            for name, count in kernels.launch_counts().items():
+                if count > before[name]:
+                    meter.launches[key] += count - before[name]
+                    meter.by_kernel[key][name] = meter.by_kernel[key].get(name, 0) + count - before[name]
             nbytes, ops = cost(*args)
             meter.nbytes[key] += nbytes
             meter.ops[key] += ops
@@ -458,6 +473,16 @@ class CompositeMeter:
         from zkevm_tpu_torch.poly.domain import Domain
 
         torch = self.torch
+        roll = torch.roll
+        meter = self
+
+        def counted_roll(*args, **kwargs):
+            if meter._active is not None:
+                meter.rolls[meter._active] += 1
+            return roll(*args, **kwargs)
+
+        self._saved.append((torch, "roll", roll))
+        torch.roll = counted_roll
 
         def coset_ntt(dom, a):
             en = a.shape[-2]
@@ -489,7 +514,6 @@ class CompositeMeter:
             return sum(4 * t.numel() for t in polys.values()), 0
 
         self._patch(shplonk, "open_many", "K14", open_many_cost)
-        meter = self
 
         def count_msm(engine_cls, ops_of):
             call = engine_cls.__call__
@@ -521,8 +545,18 @@ class CompositeMeter:
         out = {}
         for k in self.KEYS:
             b, by = bound(self.nbytes[k], self.ops[k])
-            out[k] = {"calls": self.calls[k], "launches": self.launches[k], "bound_ms": b, "bound_by": by}
+            out[k] = {"calls": self.calls[k], "launches": self.launches[k], "by_kernel": self.by_kernel[k],
+                      "rolls": self.rolls[k], "bound_ms": b, "bound_by": by}
         return out
+
+    def check_quotient(self, parts: int) -> None:
+        """K12 ran ``parts`` quotient parts, each one launch of kernel M and
+        nothing else: no other kernel and no ``torch.roll``."""
+        got = (self.calls["K12"], self.by_kernel["K12"], self.rolls["K12"])
+        if got != (parts, {"quotient": parts}, 0):
+            raise AssertionError(f"quotient: {parts} parts should be {parts} launches of M and no roll; "
+                                 f"got calls, launches by kernel, rolls = {got}")
+        log(f"  quotient: {parts} parts, {parts} launches of M, no other launch and no torch.roll inside")
 
 
 # ---------------------------------------------------------------------------
@@ -1166,6 +1200,104 @@ def phase_nonzero(torch, rep: Report, gen, dev) -> None:
     rep.record("field_nonzero", f"({n}, 8) words", err, ms, pms, 33 * n, 0, library_ms=lib)
 
 
+def quotient_record(torch, prog, part_vals, domain_x, consts) -> tuple[float, float, str]:
+    """(M's ms on the part, its bound in ms, what bounds it): each column of
+    the part and the domain points read once, the result written once, and
+    the program's products and additions on every row."""
+    from zkevm_tpu_torch.plonk import quotient as q
+
+    ms = cuda_ms(torch, lambda: q.evaluate(prog, part_vals, domain_x, consts), reps=3)
+    b, by = bound(4 * (part_vals.numel() + domain_x.numel()) + 32 * part_vals.shape[1], prog.int_ops())
+    return ms, b, by
+
+
+def phase_quotient(torch, rep: Report, gen, dev, k: int = 12) -> None:
+    """Kernel M on the toy circuit's constraints (its gate, lookup and
+    permutation arguments) at 2^k rows of random columns, against its
+    plain version on every row."""
+    from zkevm_tpu_torch.circuits import toy
+    from zkevm_tpu_torch.ff.field import FR
+    from zkevm_tpu_torch.plonk import ConstraintSystem, quotient as q
+    from zkevm_tpu_torch.plonk.protocol import build_protocol
+
+    n = 1 << k
+    cs, _ = toy.build_toy(ConstraintSystem)
+    ints = [int.from_bytes(np.random.default_rng(k).bytes(31), "little") for _ in range(4)]
+    prot = build_protocol(cs, n, *ints[:3])
+    cols = q.queried_columns(prot.constraints)
+    prog = q.compile_constraints(prot.constraints, cols, n)
+    part_vals = random_field(torch, FR, len(cols) * n, gen, dev).reshape(len(cols), n, 8)
+    domain_x = random_field(torch, FR, n, gen, dev)
+    consts = q.constants_table(prog, ints[3], [], dev)
+    got = q.evaluate(prog, part_vals, domain_x, consts)
+    want, pms = plain_ms_of(torch, lambda: q.plain_evaluate(prog, part_vals, domain_x, consts))
+    err = max_abs_err(torch, got, want)
+    check_equal(f"quotient, toy constraints at {n} rows", err)
+    log(f"  quotient program (toy): {prog.describe()}")
+    ms, _, _ = quotient_record(torch, prog, part_vals, domain_x, consts)
+    rep.record("quotient", f"toy constraints, {n} rows", err, ms, pms,
+               4 * (part_vals.numel() + domain_x.numel()) + 32 * n, prog.int_ops())
+
+
+class _PartCaptured(Exception):
+    pass
+
+
+def capture_part(prove) -> dict:
+    """Run ``prove`` (a create_proof call) up to its first quotient part and
+    return that part's inputs; the proof stops there."""
+    from zkevm_tpu_torch.plonk import quotient as q
+
+    h_part, got = q.h_part, {}
+
+    def capture(protocol, cols_order, part_vals, domain_x, ch_mont, y):
+        got.update(protocol=protocol, cols_order=cols_order, part_vals=part_vals, domain_x=domain_x,
+                   ch_mont=ch_mont, y=y)
+        raise _PartCaptured
+
+    q.h_part = capture
+    try:
+        prove()
+    except _PartCaptured:
+        pass
+    finally:
+        q.h_part = h_part
+    if not got:
+        raise AssertionError("create_proof reached no quotient part")
+    return got
+
+
+def check_quotient_part(torch, rng, part: dict, sample: int = 512, edge: int = 64) -> dict:
+    """Kernel M on one whole quotient part of a main path against the
+    per-node path (``h_part_by_nodes``: kernel A per tree node, rolls and
+    stacks) word for word, and against its plain version on ``sample``
+    rows: the first and last ``edge`` rows, where rotations wrap, and
+    random others. Returns M's record for that part."""
+    from zkevm_tpu_torch.plonk import quotient as q
+
+    pv, dx = part["part_vals"], part["domain_x"]
+    n = pv.shape[1]
+    prog = q.compile_constraints(part["protocol"].constraints, part["cols_order"], n)
+    consts = q.constants_table(prog, part["y"], part["ch_mont"], pv.device)
+    log(f"  quotient program: {prog.describe()}; part_vals {tuple(pv.shape)}")
+    got = q.evaluate(prog, pv, dx, consts)
+    want, nodes_ms = plain_ms_of(torch, lambda: q.h_part_by_nodes(
+        part["protocol"], part["cols_order"], pv, dx, part["ch_mont"], part["y"]))
+    check_equal(f"quotient part ({n} rows) against the per-node path", max_abs_err(torch, got, want))
+    del want
+    rows = np.concatenate([np.arange(edge), np.arange(n - edge, n),
+                           rng.choice(np.arange(edge, n - edge), sample - 2 * edge, replace=False)])
+    want, pms = plain_ms_of(torch, lambda: q.plain_evaluate(prog, pv, dx, consts, rows=rows))
+    check_equal(f"quotient part on {sample} rows against the plain version",
+                max_abs_err(torch, got[torch.from_numpy(rows).to(pv.device)], want))
+    ms, b, by = quotient_record(torch, prog, pv, dx, consts)
+    log(f"  quotient part: M {ms:.4f} ms, bound {b:.4f} ms ({by}); per-node path {nodes_ms:.2f} ms; "
+        f"plain {pms / 1e3:.2f} s on {sample} rows; equal to both")
+    return {"shape": f"({pv.shape[0]}, {n}, 8) part, {len(prog.code)} instructions, {prog.n_regs} registers",
+            "ms": ms, "bound_ms": b, "bound_by": by, "plain_ms": pms, "plain_on": f"{sample} rows",
+            "per_node_ms": nodes_ms, "max_abs_err": 0}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the toy proofs against the recorded reference proofs
 # ---------------------------------------------------------------------------
@@ -1276,7 +1408,7 @@ def phase_mpt_small(torch, dev) -> None:
 
 MAIN_K = 20  # the reference's inner degree, the size users prove at
 KECCAK_PATH_KERNELS = ("field_mul", "field_add_sub", "field_pow", "ntt", "g1_add",
-                       "g1_scalar_mul", "msm", "keccak")
+                       "g1_scalar_mul", "msm", "keccak", "quotient")
 RATE = 136
 EDGE_LENGTHS = [0, 1, 135, 136, 137, 271, 272, 2000]
 
@@ -1346,6 +1478,7 @@ def phase_main(torch, dev, seed: int) -> tuple[dict, object, object]:
     launches = kernels.launch_counts()
     log(f"  launches: {json.dumps(launches)}")
     log(f"  composites: {json.dumps(meter.summary())}")
+    meter.check_quotient(pk.vk.domain.extended_n // pk.vk.domain.n)
     log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     if not ok:
         raise AssertionError("verify_proof rejected the KeccakTable proof")
@@ -1364,7 +1497,10 @@ def phase_main(torch, dev, seed: int) -> tuple[dict, object, object]:
     missing = [name for name in KECCAK_PATH_KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the KeccakTable path: {missing}")
-    return {"times": times, "launches": launches, "composites": meter.summary()}, params, pk.vk.domain
+    part = check_quotient_part(torch, rng, capture_part(
+        lambda: create_proof(params, pk, [], wit.witness_phases(), seed=seed)))
+    return ({"times": times, "launches": launches, "composites": meter.summary(), "quotient_part": part},
+            params, pk.vk.domain)
 
 
 # ---------------------------------------------------------------------------
@@ -1439,7 +1575,8 @@ def phase_main_shapes(torch, rep: Report, gen, rng, dev, params, domain, *, widt
     def record(name, *args):
         main[name] = main_shape_entry(name, *args)
 
-    # -- field broadcasts of the quotient: (n, W, 8) vector-gate values
+    # -- field broadcasts of the per-node quotient path (M's cross-check in
+    # phases 4 and 6): (n, W, 8) vector-gate values
     # against a scalar column (n, 1, 8), the y-power fold (W, 8), a
     # constant (8,), a rotated copy, the lane sum, and the coset scaling
     # of the column stack (B, n, 8) x (n, 8)
@@ -1590,7 +1727,7 @@ SETUP_TAU = 0xDEAD_BEEF_CAFE  # unsafe_setup's default tau
 MPT_PREFILL = 16
 MPT_UPDATES = 32  # 16 inserts and 16 updates: 16,000 of the 16,131 table slots at k=20
 MPT_PATH_KERNELS = ("field_mul", "field_add_sub", "field_pow", "field_nonzero", "ntt",
-                    "g1_scalar_mul", "msm", "poseidon")
+                    "g1_scalar_mul", "msm", "poseidon", "quotient")
 
 
 def mpt_workload(rng, trie, mpt, n_prefill: int, n_updates: int) -> list:
@@ -1708,6 +1845,7 @@ def phase_mpt_main(torch, dev, seed: int) -> tuple[dict, list, int, int, dict]:
     launches = kernels.launch_counts()
     log(f"  launches: {json.dumps(launches)}")
     log(f"  composites: {json.dumps(meter.summary())}")
+    meter.check_quotient(pk.vk.domain.extended_n // pk.vk.domain.n)
     log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     log(f"  {len(states)} permutations in {slots} slots; lookup permutation host seconds: "
         + json.dumps([round(v, 2) for v in lookup_s]))
@@ -1730,9 +1868,11 @@ def phase_mpt_main(torch, dev, seed: int) -> tuple[dict, list, int, int, dict]:
     missing = [name for name in MPT_PATH_KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the MPT path: {missing}")
+    part = check_quotient_part(torch, rng, capture_part(
+        lambda: create_proof(params, pk, [], asg, seed=seed, transcript=PoseidonTranscript())))
     reuse = {"cs": cs, "asg": asg, "vk_fingerprint": vk_fingerprint(pk.vk), "proof": proof_to_json(proof)}
-    return ({"times": times, "launches": launches, "composites": meter.summary()}, states, slots,
-            max(mock_row_counts(cs, asg)), reuse)
+    return ({"times": times, "launches": launches, "composites": meter.summary(), "quotient_part": part},
+            states, slots, max(mock_row_counts(cs, asg)), reuse)
 
 
 def phase_mpt_shapes(torch, rep: Report, gen, dev, states: list, slots: int, mock_rows: int,
@@ -1770,7 +1910,7 @@ def phase_mpt_shapes(torch, rep: Report, gen, dev, states: list, slots: int, moc
 # ---------------------------------------------------------------------------
 
 SRS_PATH_KERNELS = ("field_mul", "field_add_sub", "field_pow", "ntt", "g1_scalar_mul", "pippenger",
-                    "kzg_open")
+                    "kzg_open", "quotient")
 SRS_SPOT = (0, 1, 2, 12345, (1 << MAIN_K) - 1)  # points of each section held to the goldens
 
 
@@ -1856,6 +1996,7 @@ def phase_srs_file(torch, rep: Report, rng, dev, seed: int, mpt: dict) -> dict:
     launches = kernels.launch_counts()
     log(f"  launches: {json.dumps(launches)}")
     log(f"  composites: {json.dumps(meter.summary())}")
+    meter.check_quotient(pk.vk.domain.extended_n // pk.vk.domain.n)
     log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
     check_srs_file(path, k, SETUP_TAU)
@@ -1909,7 +2050,7 @@ def phase_srs_file(torch, rep: Report, rng, dev, seed: int, mpt: dict) -> dict:
 # size k, on phase 6's circuit, assignment and seed
 # ---------------------------------------------------------------------------
 
-MESH_PROOF_KERNELS = ("field_mul", "field_add_sub", "field_pow", "ntt", "pippenger")
+MESH_PROOF_KERNELS = ("field_mul", "field_add_sub", "field_pow", "ntt", "pippenger", "quotient")
 MESH_SUBLANES = 128  # sharded_msm_t's Lw
 MESH_SMALL = 1 << 12  # the mesh MSM held to its plain version at this many points
 MESH_PLAIN16 = 1 << 14  # ... and at c = 16 at this many
@@ -2065,6 +2206,7 @@ def phase_mesh(torch, rep: Report, gen, rng, dev, seed: int, mpt: dict) -> dict:
         log(f"  launches: {json.dumps(launches)}")
         log(f"  collectives: {json.dumps(collectives)}")
         log(f"  composites: {json.dumps(meter.summary())}")
+        meter.check_quotient(pk.vk.domain.extended_n // pk.vk.domain.n)
         log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
         if not isinstance(params.committer, pm.MeshMSM) or params.committer.scan or params.committer.c != 16:
             raise AssertionError(f"use_mesh: engine {params.committer!r}")
@@ -2119,7 +2261,8 @@ def phase_mesh(torch, rep: Report, gen, rng, dev, seed: int, mpt: dict) -> dict:
 # ec/msm13.py) at size k, on phase 6's circuit, assignment and seed
 # ---------------------------------------------------------------------------
 
-L13_PATH_KERNELS = ("field_mul", "field_add_sub", "field_pow", "ntt", "g1_scalar_mul", "lazy13", "msm13")
+L13_PATH_KERNELS = ("field_mul", "field_add_sub", "field_pow", "ntt", "g1_scalar_mul", "lazy13", "msm13",
+                    "quotient")
 
 
 def phase_l13(torch, rep: Report, rng, dev, seed: int, mpt: dict) -> dict:
@@ -2174,6 +2317,7 @@ def phase_l13(torch, rep: Report, rng, dev, seed: int, mpt: dict) -> dict:
     proof_fallbacks = engine.fallbacks
     log(f"  launches: {json.dumps(launches)}")
     log(f"  composites: {json.dumps(meter.summary())}")
+    meter.check_quotient(pk.vk.domain.extended_n // pk.vk.domain.n)
     log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     log(f"  Msm13 calls {len(calls)} (of {sorted(set(calls))} points), fallbacks {engine.fallbacks}")
     if not isinstance(engine, m13.Msm13) or (engine.c, engine.lanes, engine.wgroup) != (16, 4096, 8):
@@ -2291,6 +2435,7 @@ def main(argv=None) -> int:
     phase_kzg_open(torch, rep, gen, rng, dev)
     phase_lazy13(torch, rep, gen, dev)
     phase_msm13(torch, rep, rng, dev)
+    phase_quotient(torch, rep, gen, dev)
     log(f"phase kernels: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
@@ -2304,6 +2449,7 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     keccak_path, params, domain = phase_main(torch, dev, args.seed)
     paths["keccak_table"] = keccak_path["launches"]
+    quotient_parts = {"keccak_table": keccak_path["quotient_part"]}
     log(f"phase main: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
@@ -2315,6 +2461,7 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     mpt_path, states, slots, mock_rows, mpt_reuse = phase_mpt_main(torch, dev, args.seed)
     paths["mpt"] = mpt_path["launches"]
+    quotient_parts["mpt"] = mpt_path["quotient_part"]
     log(f"phase mpt main: {time.perf_counter() - t:.1f} s")
     torch.cuda.empty_cache()
 
@@ -2342,6 +2489,14 @@ def main(argv=None) -> int:
     l13_path = phase_l13(torch, rep, rng, dev, args.seed, mpt_reuse)
     paths["l13"] = l13_path["launches"]
     log(f"phase l13: {time.perf_counter() - t:.1f} s")
+
+    # kernel M on one whole quotient part of each main path
+    kp = quotient_parts["keccak_table"]
+    rep.rows["quotient"].update(
+        main_shape=kp["shape"], main_shape_max_abs_err=0, main_shape_ms=kp["ms"],
+        main_shape_plain_ms=kp["plain_ms"], main_shape_plain_on=kp["plain_on"],
+        main_shape_bound_ms=kp["bound_ms"], main_shape_bound_by=kp["bound_by"],
+        main_shape_library_ms=None, parts=quotient_parts)
 
     # launches: the sum over the main paths, each counted from zero over
     # its own run, with the count of each path beside it (the mesh path in

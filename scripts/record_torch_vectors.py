@@ -1,8 +1,8 @@
 """Record reference vectors from the JAX package for the PyTorch port.
 
-Usage: python scripts/record_torch_vectors.py [toy|mpt|kzg|mesh|l13 ...]
+Usage: python scripts/record_torch_vectors.py [toy|mpt|kzg|mesh|l13|quotient ...]
 
-Runs ``zkevm_tpu`` on the CPU and writes five files (all by default).
+Runs ``zkevm_tpu`` on the CPU and writes six files (all by default).
 
 ``tests/vectors/torch_port_toy_proof.json``: for the K=5 toy circuit of
 ``tests/test_plonk.py`` and for a two-phase toy circuit with one
@@ -70,6 +70,15 @@ under ``jax.disable_jit()`` (compiled, ``_window_sums`` takes tens of GB of
 XLA:CPU memory; eager, about 20 minutes each and little memory: the same
 integer ops). ``inputs_digest`` and ``outputs_digest`` bind them as in the
 MPT file.
+
+``tests/vectors/torch_port_quotient.json``: one part of the quotient's
+numerator over the KeccakTable and the depth-8 MPT constraint lists at 16
+rows. Its inputs are made from fixed seeds (the protocol's challenges, the
+circuits' challenges, y, the order of the columns the constraints query;
+their values and the domain points come from ``quotient_values``); its
+outputs are the reference's ``_h_part`` fold, evaluated by the reference's
+``Expr.evaluate`` and ``EvalContext``. ``inputs_digest`` and
+``outputs_digest`` bind them as in the MPT file.
 """
 
 from __future__ import annotations
@@ -119,6 +128,9 @@ HASH_LENGTHS = (1, 2, 3, 5)
 TAU = 0xDEAD_BEEF_CAFE  # the reference's default unsafe_setup tau
 TOY_SEED = 7
 TWO_PHASE_SEED = 11
+QUOTIENT_OUT = ROOT / "tests" / "vectors" / "torch_port_quotient.json"
+QUOTIENT_K = 4  # 16 rows: every rotation of these circuits wraps somewhere
+QUOTIENT_RECORDED = ("keccak_table", "mpt")  # the live checks (toy, two_phase) are cheap
 
 
 def record() -> dict:
@@ -659,8 +671,164 @@ def record_l13() -> dict:
     return {**host, "inputs_digest": sha256_json(host), **outputs, "outputs_digest": sha256_json(outputs)}
 
 
+def quotient_circuit(name: str, package: str):
+    """The ConstraintSystem of a quotient case, built with the classes of
+    ``package`` ("jax", the reference, or "torch", the port)."""
+    sys.path.insert(0, str(ROOT))
+    from zkevm_tpu_torch.circuits import mpt_small as ms, toy
+
+    if package == "jax":
+        from zkevm_tpu.circuits import keccak_table as kt, mpt_circuit as mpt, poseidon_table as pt
+        from zkevm_tpu.circuits.tables import Challenges
+        from zkevm_tpu.plonk import ConstraintSystem
+    else:
+        from zkevm_tpu_torch.circuits import keccak_table as kt, mpt_circuit as mpt, poseidon_table as pt
+        from zkevm_tpu_torch.circuits.tables import Challenges
+        from zkevm_tpu_torch.plonk import ConstraintSystem
+    if name == "toy":
+        return toy.build_toy(ConstraintSystem)[0]
+    if name == "two_phase":
+        return toy.build_two_phase(ConstraintSystem)[0]
+    if name == "mpt":
+        return ms.build(ConstraintSystem, pt, mpt)[0]
+    cs = ConstraintSystem()
+    kt.configure(cs, Challenges.configure(cs))
+    return cs
+
+
+def column_key(col) -> list:
+    return [col.kind, str(col.index), col.phase]
+
+
+def quotient_columns(constraints) -> list:
+    """Every column the constraint trees (of either package) query, in a
+    fixed order: by ``column_key``."""
+    cols, seen = {}, set()
+    stack = [e for e, _ in constraints]
+    while stack:
+        e = stack.pop()
+        if id(e) in seen:
+            continue
+        seen.add(id(e))
+        kind = type(e).__name__
+        if kind == "Query":
+            cols[tuple(column_key(e.column))] = e.column
+        elif kind == "GroupQuery":
+            cols.update({tuple(column_key(c)): c for c in e.group.columns})
+        elif kind == "Neg":
+            stack.append(e.inner)
+        elif kind in ("Sum", "Prod"):
+            stack += [e.a, e.b]
+    return [cols[key] for key in sorted(cols)]
+
+
+def quotient_inputs(name: str, cs) -> dict:
+    """The fixed inputs of a quotient case over ``cs``: the protocol's
+    challenges theta, beta, gamma, the circuit's challenges, y and the
+    column order; the values come from ``quotient_values``."""
+    from zkevm_tpu_torch.ff.goldens import FR_MOD
+    from zkevm_tpu_torch.plonk.protocol import build_protocol
+
+    seed = int.from_bytes(hashlib.sha256(name.encode()).digest()[:4], "little")
+    rng = np.random.default_rng(seed)
+
+    def elem():
+        return int.from_bytes(rng.bytes(32), "little") % FR_MOD
+
+    inp = {"k": QUOTIENT_K, "seed": seed, "theta": elem(), "beta": elem(), "gamma": elem(),
+           "y": elem(), "challenges": [elem() for _ in cs.challenges]}
+    prot = build_protocol(cs, 1 << QUOTIENT_K, inp["theta"], inp["beta"], inp["gamma"])
+    inp["columns"] = [column_key(c) for c in quotient_columns(prot.constraints)]
+    return inp
+
+
+def quotient_values(inp: dict) -> tuple[list, list]:
+    """(values per column, domain_x) as field elements from the case's
+    seed: random, with 0, 1 and r - 1 at rows 0 and n - 1 in turn."""
+    from zkevm_tpu_torch.ff.goldens import FR_MOD
+
+    n = 1 << inp["k"]
+    rng = np.random.default_rng([inp["seed"], 1])
+    edges = (0, 1, FR_MOD - 1)
+
+    def column(j):
+        v = [int.from_bytes(rng.bytes(32), "little") % FR_MOD for _ in range(n)]
+        v[0], v[n - 1] = edges[j % 3], edges[(j + 1) % 3]
+        return v
+
+    return [column(j) for j in range(len(inp["columns"]))], column(len(inp["columns"]))
+
+
+def reference_quotient(cs, inp: dict) -> list[int]:
+    """The reference's quotient part over the case's inputs, as field
+    elements: its ``build_protocol``, ``EvalContext`` and ``Expr.evaluate``,
+    folded as its ``_h_part`` folds (``zkevm_tpu/plonk/prover.py:443-475``,
+    copied: the fold is local to ``create_proof``). ``cs`` is the
+    reference's ConstraintSystem."""
+    import jax.numpy as jnp
+
+    from zkevm_tpu.ff import FR
+    from zkevm_tpu.ff import limbs as ff
+    from zkevm_tpu.ff.goldens import FR_MOD
+    from zkevm_tpu.plonk.expr import EvalContext
+    from zkevm_tpu.plonk.protocol import build_protocol
+
+    n = 1 << inp["k"]
+    y = inp["y"]
+    prot = build_protocol(cs, n, inp["theta"], inp["beta"], inp["gamma"])
+    cols = quotient_columns(prot.constraints)
+    if [column_key(c) for c in cols] != inp["columns"]:
+        raise RuntimeError("the reference's circuit queries other columns than the case's")
+    values, domain_x = quotient_values(inp)
+
+    def enc(xs):
+        return jnp.asarray(np.stack([FR.encode(v) for v in xs]))
+
+    ctx = EvalContext({c: enc(v) for c, v in zip(cols, values)},
+                      [jnp.asarray(FR.encode(v)) for v in inp["challenges"]], rot_scale=1, n=n)
+    ctx.set_domain_x(enc(domain_x))
+    y_m = jnp.asarray(FR.encode(y))
+    hj = jnp.zeros((n, ff.L), jnp.uint32)
+    for con, width in prot.constraints:
+        v = con.evaluate(ctx)
+        if width:
+            ypows = np.stack([FR.encode(pow(y, width - 1 - z, FR_MOD)) for z in range(width)])
+            fold = ff.mont_mul(FR, v, jnp.asarray(ypows)[None])
+            m = 1
+            while m < width:
+                m *= 2
+            if m != width:
+                pad = jnp.zeros((fold.shape[0], m - width, ff.L), jnp.uint32)
+                fold = jnp.concatenate([fold, pad], axis=1)
+            while m > 1:
+                m //= 2
+                fold = ff.add(FR, fold[:, :m], fold[:, m:])
+            yw = jnp.asarray(FR.encode(pow(y, width, FR_MOD)))
+            hj = ff.add(FR, ff.mont_mul(FR, hj, yw), fold[:, 0])
+        else:
+            v = jnp.broadcast_to(v, (n, ff.L))
+            hj = ff.add(FR, ff.mont_mul(FR, hj, y_m), v)
+    return [FR.decode(row) for row in np.asarray(hj)]
+
+
+def quotient_host() -> dict:
+    """The inputs of the recorded quotient cases (cheap: port classes)."""
+    return {name: quotient_inputs(name, quotient_circuit(name, "torch")) for name in QUOTIENT_RECORDED}
+
+
+def record_quotient() -> dict:
+    """The quotient vector: per case, the inputs and the reference's folded
+    part (a few minutes: the reference's field ops compile per shape)."""
+    host = quotient_host()
+    outputs = {}
+    for name, inp in host.items():
+        outputs[f"{name}_fold"] = reference_quotient(quotient_circuit(name, "jax"), inp)
+        progress(f"quotient: {name} recorded")
+    return {**host, "inputs_digest": sha256_json(host), **outputs, "outputs_digest": sha256_json(outputs)}
+
+
 def main(argv=None) -> int:
-    which = (argv if argv is not None else sys.argv[1:]) or ["toy", "mpt", "kzg", "mesh", "l13"]
+    which = (argv if argv is not None else sys.argv[1:]) or ["toy", "mpt", "kzg", "mesh", "l13", "quotient"]
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
 
@@ -686,6 +854,9 @@ def main(argv=None) -> int:
     if "l13" in which:
         L13_OUT.write_text(json.dumps(record_l13(), indent=1) + "\n")
         print(f"wrote {L13_OUT}")
+    if "quotient" in which:
+        QUOTIENT_OUT.write_text(json.dumps(record_quotient(), indent=1) + "\n")
+        print(f"wrote {QUOTIENT_OUT}")
     return 0
 
 

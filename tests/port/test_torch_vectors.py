@@ -12,7 +12,9 @@ digests that bind the reference's ``ntt_t`` and forced-host mesh outputs to
 them; of the lazy-13 vector (``tests/vectors/torch_port_l13.json``) the
 inputs, made again, with the digests that bind the reference's point
 formulas, ``msm13`` window sums and results and ``Msm13`` conversion to
-them."""
+them; of the quotient vector (``tests/vectors/torch_port_quotient.json``)
+the inputs, made again, with the digests that bind the reference's folded
+parts to them."""
 
 import importlib.util
 import json
@@ -79,3 +81,15 @@ def test_l13_vector_file_is_current(rec):
     assert set(outputs) == {f"{key}_out" for key in rec.L13_HOST_KEYS}
     assert vec["outputs_digest"] == rec.sha256_json(outputs)
     assert [len(case["windows"]["inf"]) for case in vec["msm_out"]] == [64, 64, 16]
+
+
+def test_quotient_vector_file_is_current(rec):
+    vec = json.loads(rec.QUOTIENT_OUT.read_text())
+    host = rec.quotient_host()
+    assert {key: vec[key] for key in rec.QUOTIENT_RECORDED} == host
+    assert vec["inputs_digest"] == rec.sha256_json(host)
+    outputs = {key: vec[key] for key in vec
+               if key not in rec.QUOTIENT_RECORDED + ("inputs_digest", "outputs_digest")}
+    assert set(outputs) == {f"{key}_fold" for key in rec.QUOTIENT_RECORDED}
+    assert vec["outputs_digest"] == rec.sha256_json(outputs)
+    assert all(len(fold) == 1 << rec.QUOTIENT_K for fold in outputs.values())

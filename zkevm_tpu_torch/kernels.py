@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-LIBRARIES = ("field", "ntt", "curve", "keccak", "poseidon", "pippenger", "kzg", "ntt4", "lazy13", "msm13")
+LIBRARIES = ("field", "ntt", "curve", "keccak", "poseidon", "pippenger", "kzg", "ntt4", "lazy13", "msm13", "quotient")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -58,6 +58,7 @@ KERNEL_NAMES = (
     "kzg_open",
     "lazy13",
     "msm13",
+    "quotient",
 )
 _counts = {name: 0 for name in KERNEL_NAMES}
 _lock = threading.Lock()

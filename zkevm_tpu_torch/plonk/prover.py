@@ -10,8 +10,8 @@ params' device through the port's kernels:
 - grand products: factors and a Fermat inversion (kernel A) and a log-step
   prefix product (``prefix_product``, launches of kernel A);
 - quotient: every constraint tree evaluated per n-point part of the
-  extended coset, one field-kernel launch per tree node (``_h_part``),
-  y-folded and divided by Z_H;
+  extended coset and y-folded by one launch of kernel M (``_h_part``,
+  ``plonk/quotient.py``), then divided by Z_H;
 - multiopen: SHPLONK (``plonk/shplonk.py``).
 
 Host work is the transcript bytes and the lookup permutation ordering.
@@ -30,7 +30,7 @@ from zkevm_tpu_torch.ff import field as ff
 from zkevm_tpu_torch.ff.field import FR
 from zkevm_tpu_torch.ff.goldens import FR_MOD
 from zkevm_tpu_torch.kzg.params import ParamsKZG
-from zkevm_tpu_torch.plonk import shplonk
+from zkevm_tpu_torch.plonk import quotient, shplonk
 from zkevm_tpu_torch.plonk.assign import Assignment
 from zkevm_tpu_torch.plonk.expr import EvalContext
 from zkevm_tpu_torch.plonk.keygen import ProvingKey
@@ -238,25 +238,9 @@ def _h_part(protocol, cols_order: list, part_vals: torch.Tensor, domain_x: torch
             ch_mont: list, y: int) -> torch.Tensor:
     """One n-point part of the quotient's numerator: every constraint of
     ``protocol`` evaluated on ``part_vals`` ((columns, n, 8), in
-    ``cols_order``), folded by powers of y."""
-    dev = part_vals.device
-    n = part_vals.shape[1]
-    ctx = EvalContext({c: part_vals[idx] for idx, c in enumerate(cols_order)}, ch_mont, dev)
-    ctx.set_domain_x(domain_x)
-    y_m = FR.const(y, dev)
-    hj = torch.zeros(n, ff.W, dtype=torch.int32, device=dev)
-    for con, width in protocol.constraints:
-        v = con.evaluate(ctx)
-        if width:
-            # vector constraint (n, W, 8): fold lanes by y^(W-1-z),
-            # the same as W sequential scalar folds (verifier view)
-            ypows = ff.to_tensor(FR.encode_many(
-                [pow(y, width - 1 - z, FR_MOD) for z in range(width)]), dev)
-            fold = ff.sum_rows(FR, ff.mont_mul(FR, v, ypows), dim=1)
-            hj = ff.add(FR, ff.mont_mul(FR, hj, FR.const(pow(y, width, FR_MOD), dev)), fold)
-        else:
-            hj = ff.add(FR, ff.mont_mul(FR, hj, y_m), v)
-    return hj
+    ``cols_order``), folded by powers of y (kernel M on the card, one
+    launch; its plain version on the CPU)."""
+    return quotient.h_part(protocol, cols_order, part_vals, domain_x, ch_mont, y)
 
 
 def create_proof(
