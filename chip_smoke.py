@@ -8,9 +8,11 @@ Phases, each printing its own lines before the last line:
 0. the card's name and power limit (``nvidia-smi``);
 1. build of the hand-written kernels A-J, L and M from ``zkevm_tpu_torch/csrc``;
 2. every kernel against its plain PyTorch version on the card, bit for bit,
-   with timings and bounds (Poseidon E also against the golden model; the
+   with timings and bounds (Poseidon E also against the golden model; C's
+   MSM with its PTX and its 64-bit CIOS product alike; the
    Pippenger MSM G, unsigned and signed, at 2^12 points with zero scalars,
-   repeated bases and scalars >= 2^255; the opening's kernel H at 2^20; the
+   repeated, opposite and identity bases and scalars >= 2^255, and its wide
+   windows (C's sorted accumulation) at c = 9 and 10; the opening's kernel H at 2^20; the
    four-step NTT I at k = 7, 9 and 12, and at k = 20 on one column and
    k = 22 in a batch of 4, also against kernel B; I's column and row
    passes as rank r of a world of 2 and 4 runs them, at k = 9, 12, 20
@@ -42,6 +44,12 @@ Phases, each printing its own lines before the last line:
    the per-node quotient path's (2^20, 64, 8) field broadcasts, which M
    replaced in the proof and the smoke still runs as M's cross-check),
    each against its plain version bit for bit, timed beside its bound;
+   the MSM's affine bases against the plain conversion, its result on
+   all-zero scalars, its time with the PTX and the CIOS product (equal
+   words) and by stage (digits, sort, accumulation, fold, Horner), and C,
+   and G at c = 4 and 16, over the SRS with an identity base and equal and
+   opposite bases against the golden sums on random, all-zero and 0/1
+   scalars;
 6. the second main path at full size: the state trie (MPT circuit over the
    PoseidonTable) at k=20 and trie depth 248: a trie of 16 entries and 32
    chained updates made from ``--seed``, ``poseidon_states``, the table and
@@ -61,13 +69,15 @@ Phases, each printing its own lines before the last line:
    eval), ``open_single`` of a 2^20 column at a random z with
    ``verify_single`` (True, and False for value + 1), with the path's launch
    counts; then G over the loaded SRS at 2^20 points against its plain
-   version word for word and against C's MSM by affine points;
+   version word for word and against C's MSM by affine points (random,
+   all-zero and 0/1 scalars), timed by stage;
 9. the mesh path (``parallel/mesh.py``) over NCCL in a world of one GPU
    (a ``file://`` store under ``build/``): at 2^20 points ``sharded_msm``,
    ``sharded_msm_t_scan`` and ``sharded_msm_t`` (c = 4 and 16) against C's
    MSM by affine points and ``sharded_msm_t`` against G's MSM word for word,
    at 2^12 (c = 4) and 2^14 (c = 16, every fold segment) against its plain
-   version; ``sharded_ntt_batch`` (16 columns,
+   version; ``MeshMSM`` and G at c = 16 by stage, against C's MSM on
+   all-zero and 0/1 scalars; ``sharded_ntt_batch`` (16 columns,
    k=20) against B and ``sharded_ntt_t`` (k = 20 and 22, both directions)
    against I word for word; then ``unsafe_setup(20)`` with ``use_mesh()``
    and phase 6's circuit: ``keygen`` (phase 6's vk fingerprint),
@@ -255,11 +265,12 @@ def pippenger_int_ops(torch, scalars, c: int, signed: bool, sublanes: int = 1024
     affine bases: a mixed addition per non-zero digit after the first into
     its (lane, window, bucket), a full addition per further filled lane of
     each (window, bucket) group in the lane merge, two per bucket for the
-    fold's running sums (and, when a window folds in several segments, the
-    combination's three per segment and its doublings), and Horner's
-    additions and doublings."""
+    fold's running sums, and Horner's additions and doublings. Windows wider
+    than LANE_MAX_C (unsigned) run C's sorted MSM, counted as msm_int_ops."""
     from zkevm_tpu_torch.ec import pippenger as pip
 
+    if c > pip.LANE_MAX_C and not signed:
+        return msm_int_ops(torch, scalars, c)
     digits = pip.digit_table(scalars, c, 256, signed).abs()
     wd, nb = digits.shape[1], pip.num_buckets(c, signed)
     lw = pip.lane_width(digits.shape[0], sublanes)
@@ -271,10 +282,8 @@ def pippenger_int_ops(torch, scalars, c: int, signed: bool, sublanes: int = 1024
         filled += int((torch.bincount(lane * nb + d, minlength=lw * nb).reshape(lw, nb)[:, 1:] > 0)
                       .sum().item())
         groups += int((torch.bincount(d, minlength=nb)[1:] > 0).sum().item())
-    parts, seg = pip.fold_segments(nb)
-    combine_adds, combine_dbls = (3 * parts, seg.bit_length() - 1) if parts > 1 else (0, 0)
-    full = filled - groups + (2 * (nb - 1) + combine_adds) * wd + wd - 1
-    dbls = (wd - 1) * c + combine_dbls * wd
+    full = filled - groups + 2 * (nb - 1) * wd + wd - 1
+    dbls = (wd - 1) * c
     return (nonzero - filled) * MADD_INT_OPS + full * ADD_INT_OPS + dbls * DBL_INT_OPS
 
 
@@ -372,6 +381,92 @@ def plain_ms_of(torch, fn) -> tuple[object, float]:
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t) * 1e3
+
+
+def ptxas_summary(log: str) -> dict:
+    """{kernel: registers, stack, spill bytes} from nvcc's ``-Xptxas -v``
+    output; a template kernel is named with its field arithmetic (Ptx,
+    Cios)."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            mangled, parts, i = m.group(1), [], 3
+            while mangled.startswith("_ZN") and i < len(mangled) and mangled[i].isdigit():
+                j = i
+                while mangled[j].isdigit():
+                    j += 1
+                parts.append(mangled[j : j + int(mangled[i:j])])
+                i = j + int(mangled[i:j])
+            policy = re.search(r"(?:zk|S_)\d+(Ptx|Cios)", mangled)
+            name = (parts[-1] if parts else mangled) + (f"<{policy.group(1)}>" if policy else "")
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def stage_ms(torch, run, reps: int = 3) -> dict:
+    """Mean device ms of each stage of an MSM over reps runs, after a
+    warm-up: run(marks) appends (stage, CUDA event) after each stage."""
+    run(None)
+    torch.cuda.synchronize()
+    totals: dict[str, float] = {}
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        marks: list = []
+        run(marks)
+        torch.cuda.synchronize()
+        prev = start
+        for name, ev in marks:
+            totals[name] = totals.get(name, 0.0) + prev.elapsed_time(ev)
+            prev = ev
+    return {name: v / reps for name, v in totals.items()}
+
+
+def yardstick(torch, scalars) -> float:
+    """The common yardstick of the commit engines: the bound of a c = 16
+    bucket MSM (msm_int_ops) over these scalars, ms."""
+    return bound(128 * scalars.shape[0], msm_int_ops(torch, scalars, 16))[0]
+
+
+def edge_bases(torch, bases):
+    """A copy of (n, 3, 8) bases with base 5 the identity, base 7 equal to
+    base 6 and base 9 the opposite of base 8 (the affine conversion's and
+    the mixed addition's edge cases), and the changed indices."""
+    from zkevm_tpu_torch.ec import group
+
+    out = bases.clone()
+    out[5] = group.identity((), bases.device)
+    out[7] = bases[6]
+    out[9] = group.neg(bases[8:9])[0]
+    return out, (5, 7, 9)
+
+
+def edge_sum(torch, bases, edited, changed, scalars, base_sum):
+    """sum_i s_i P'_i over the edited bases from sum_i s_i P_i over the
+    original ones (an affine int point): add s_i (P'_i - P_i) for each
+    changed index, on the host golden model."""
+    from zkevm_tpu_torch.ec import goldens as g1g, group
+    from zkevm_tpu_torch.ff import field as ff
+
+    idx = list(changed)
+    old = group.to_affine_ints(bases[idx])
+    new = group.to_affine_ints(edited[idx])
+    ks = ff.ints_from_words(scalars[idx])
+    acc = base_sum
+    for p_old, p_new, k in zip(old, new, ks):
+        acc = g1g.add(acc, g1g.add(g1g.scalar_mul(p_new, k), g1g.neg(g1g.scalar_mul(p_old, k))))
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -837,12 +932,16 @@ def phase_curve(torch, rep: Report, rng, dev, m: int = 4096, lanes: int = 256,
     table = msmmod.group.doubling_table(bases)
     sc = ff.to_tensor(ff.words_from_ints(_random_scalars(n, rng)), dev)
     bits = ff.to_tensor(ff.words_from_ints(list(rng.integers(0, 2, n))), dev)
+    engine = msmmod.MSM(bases)
     for label, s in (("random", sc), ("0/1", bits)):
-        got = msmmod.msm(bases, s)
+        got = engine(s)
         want, pms = plain_ms_of(torch, lambda: msmmod.plain_msm(bases, s, table))
         if group.to_affine_ints(got) != group.to_affine_ints(want):
             raise AssertionError(f"msm differs from the plain version at n={n} ({label} scalars)")
-    log(f"  msm equals the plain version at n={n} (random and 0/1 scalars)")
+        if not torch.equal(engine(s, cios=True), got):
+            raise AssertionError(f"msm with field.cuh's CIOS product differs from the PTX product at n={n}")
+    log(f"  msm equals the plain version at n={n} (random and 0/1 scalars), with the PTX and the CIOS "
+        "product alike")
     ms = cuda_ms(torch, lambda: msmmod.msm(bases, sc))
     rep.record("msm", f"n={n}, random scalars", 0, ms, pms, 128 * n,
                msm_int_ops(torch, sc, msmmod.window_bits(n)))
@@ -851,8 +950,9 @@ def phase_curve(torch, rep: Report, rng, dev, m: int = 4096, lanes: int = 256,
 def phase_pippenger(torch, rep: Report, rng, dev, n: int = 1 << 12) -> None:
     """Kernel G, unsigned and signed at c = 4, against its plain version bit
     for bit: random 256-bit scalars (half of them >= 2^255), every
-    seventeenth zero, 2^256 - 1 among them, and bases repeated with equal
-    and with other scalars."""
+    seventeenth zero, 2^256 - 1 among them, bases repeated with equal and
+    with other scalars, an identity base and opposite bases; then its wide
+    windows (C's sorted accumulation) at c = 9 and signed c = 10."""
     from zkevm_tpu_torch.ec import group, msm as msmmod, pippenger as pip
     from zkevm_tpu_torch.ff import field as ff
 
@@ -863,6 +963,9 @@ def phase_pippenger(torch, rep: Report, rng, dev, n: int = 1 << 12) -> None:
     ks[3] = (1 << 256) - 1
     bases[5] = bases[4]
     ks[5] = ks[4]
+    bases[7] = group.identity((), dev)  # the identity base: the affine sentinel (0, 0)
+    bases[9] = group.neg(bases[8:9])[0]  # opposite bases with equal scalars
+    ks[9] = ks[8]
     bases[100:140] = bases[99]
     sc = ff.to_tensor(ff.words_from_ints(ks), dev)
     timed = {}
@@ -873,15 +976,16 @@ def phase_pippenger(torch, rep: Report, rng, dev, n: int = 1 << 12) -> None:
         timed[signed] = pms
     if group.to_affine_ints(got) != group.to_affine_ints(msmmod.msm(bases, sc)):
         raise AssertionError(f"pippenger msm differs from C's msm at n={n}")
-    # windows of more than 256 buckets, whose fold runs in several segments
+    # windows wider than LANE_MAX_C: G's digits through C's sorted
+    # accumulation, and a fold of several levels
     for c, signed in ((9, False), (10, True)):
         small = (bases[:64], sc[:64])
         check_equal(f"pippenger msm (c={c}, signed={signed}, segmented fold)",
                     max_abs_err(torch, pip.msm(*small, c=c, sublanes=4, signed=signed),
                                 pip.PLAIN["msm"](*small, c=c, sublanes=4, signed=signed)))
     log(f"  pippenger msm (c=4, unsigned and signed) equals the plain version at n={n} "
-        f"(zero scalars, scalars >= 2^255, repeated bases) and C's msm; at n=64 with c=9 and signed "
-        f"c=10 (segmented fold) its plain version")
+        f"(zero scalars, scalars >= 2^255, repeated, opposite and identity bases) and C's msm; at n=64 "
+        f"with c=9 and signed c=10 (the sorted accumulation) its plain version")
     ms = cuda_ms(torch, lambda: pip.msm(bases, sc))
     rep.record("pippenger", f"n={n}, c=4 unsigned", 0, ms, timed[False], 128 * n + 96,
                pippenger_int_ops(torch, sc, 4, False))
@@ -1407,8 +1511,8 @@ def phase_mpt_small(torch, dev) -> None:
 # ---------------------------------------------------------------------------
 
 MAIN_K = 20  # the reference's inner degree, the size users prove at
-KECCAK_PATH_KERNELS = ("field_mul", "field_add_sub", "field_pow", "ntt", "g1_add",
-                       "g1_scalar_mul", "msm", "keccak", "quotient")
+KECCAK_PATH_KERNELS = ("field_mul", "field_add_sub", "field_pow", "ntt", "g1_scalar_mul", "msm", "keccak",
+                       "quotient")
 RATE = 136
 EDGE_LENGTHS = [0, 1, 135, 136, 137, 271, 272, 2000]
 
@@ -1675,16 +1779,16 @@ def phase_main_shapes(torch, rep: Report, gen, rng, dev, params, domain, *, widt
            pms / 1e3, f"{lanes_checked} of the lanes", 96 + 32 * n + 96 * n,
            scalar_mul_int_ops(torch, sc))
 
-    # -- g1_add at the first level of the MSM's window-sum tree
-    c = msmmod.window_bits(n)
-    shape = (max(1, (1 << c) // min(1 << c, msmmod.SEGMENT) // 2), -(-256 // c), 3, 8)
-    m = shape[0] * shape[1]
-    pa = params.g1_powers[:m].reshape(shape)
-    pb = torch.roll(params.g1_powers, 1, dims=0)[:m].reshape(shape)
+    # -- g1_add at the first level of the halving tree over n lanes (the
+    # mesh's sharded_msm sums its per-lane products so), held on
+    # lanes_checked of the n / 2 pairs
+    pa, pb = params.g1_powers[: n // 2], params.g1_powers[n // 2 :]
     got = group.add(pa, pb)
-    if group.to_affine_ints(got) != group.to_affine_ints(group.PLAIN["add"](pa, pb)):
-        raise AssertionError(f"g1_add differs from the plain version at {shape}")
-    log(f"  g1_add equal at {shape}")
+    idx = torch.from_numpy(rng.choice(n // 2, lanes_checked, replace=False)).to(dev)
+    if group.to_affine_ints(got[idx]) != group.to_affine_ints(group.PLAIN["add"](pa[idx], pb[idx])):
+        raise AssertionError(f"g1_add differs from the plain version at ({n // 2}, 3, 8)")
+    del got
+    log(f"  g1_add equal at ({n // 2}, 3, 8) on {lanes_checked} of the pairs")
 
     # -- the commit MSM over the SRS: random scalars and 0/1 scalars (one
     # crowded bucket per window); the plain version sums over msm_chunk-point
@@ -1709,9 +1813,52 @@ def phase_main_shapes(torch, rep: Report, gen, rng, dev, params, domain, *, widt
             raise AssertionError(f"msm differs from the plain version at n={n} ({key} scalars)")
     log(f"  msm equals the plain version at n={n} (random and 0/1 scalars; plain seconds "
         + json.dumps({key: round(v, 1) for key, v in seconds.items()}) + ")")
-    record("msm", f"n={n}, random scalars", cuda_ms(torch, lambda: params.committer(sc), reps=3),
+    engine = params.committer
+    zero = torch.zeros_like(sc)
+    if group.to_affine_ints(engine(zero)) != [None]:
+        raise AssertionError(f"msm of all-zero scalars at n={n} is not the identity")
+    # the affine conversion of unsafe_setup's bases (z != 1), against the
+    # plain conversion on lanes_checked of them
+    if not torch.equal(engine.affine[idx], group.PLAIN["to_affine"](params.g1_powers[idx])):
+        raise AssertionError(f"to_affine of the SRS differs from the plain version on {lanes_checked} bases")
+    # the product: PTX carry chains (the kernels') against field.cuh's 64-bit
+    # CIOS on the same MSM, word for word, then timed in turns
+    if not torch.equal(engine(sc, cios=True), got["random"]):
+        raise AssertionError(f"msm with field.cuh's CIOS product differs from the PTX product at n={n}")
+    turns = [("ptx", {}), ("cios", {"cios": True}), ("cios", {"cios": True}), ("ptx", {})]
+    product_ms = {"ptx": 0.0, "cios": 0.0}
+    for name, kw in turns:
+        product_ms[name] += cuda_ms(torch, lambda kw=kw: engine(sc, **kw), reps=3) / 2
+    stages = {"ptx": stage_ms(torch, lambda marks: engine(sc, marks=marks)),
+              "cios": stage_ms(torch, lambda marks: engine(sc, cios=True, marks=marks))}
+    log(f"  msm at n={n}: PTX product {product_ms['ptx']:.4f} ms, CIOS product {product_ms['cios']:.4f} ms "
+        "(equal words); stages " + json.dumps({k: {s_: round(v, 4) for s_, v in st.items()}
+                                                for k, st in stages.items()}))
+    # edge cases over the 2^20 unsafe_setup bases: an identity base, equal
+    # and opposite bases; C, and G at c = 4 and 16 over the same bases,
+    # against the golden sum on random, all-zero and 0/1 scalars
+    from zkevm_tpu_torch.ec import pippenger as pip
+
+    edited, changed = edge_bases(torch, params.g1_powers)
+    c_edge = msmmod.MSM(edited)
+    g_affine = group.to_affine(edited)
+    for key, s_ in (("random", sc), ("zero", zero), ("0/1", bits)):
+        base_sum = None if key == "zero" else group.to_affine_ints(got[key])[0]
+        want_edge = edge_sum(torch, params.g1_powers, edited, changed, s_, base_sum)
+        results = {"C": c_edge(s_), "G c=4": pip.msm_affine(g_affine, s_, c=4),
+                   "G c=16": pip.msm_affine(g_affine, s_, c=16, sublanes=128)}
+        for label, res in results.items():
+            if group.to_affine_ints(res) != [want_edge]:
+                raise AssertionError(f"{label} over the edge bases at n={n} ({key} scalars) differs from the "
+                                     "golden sum")
+    del c_edge, g_affine, edited
+    log(f"  msm, pippenger c=4 and c=16 over the 2^20 SRS with an identity base, equal and opposite bases: "
+        "equal to the golden sums on random, all-zero and 0/1 scalars")
+    record("msm", f"n={n}, random scalars", product_ms["ptx"],
            seconds["table"] + seconds["random"], f"{n // msm_chunk} chunks of {msm_chunk} points",
            128 * n, msm_int_ops(torch, sc, msmmod.window_bits(n)))
+    main["msm"].update(main_shape_cios_ms=product_ms["cios"], main_shape_stages_ms=stages["ptx"],
+                       main_shape_stages_cios_ms=stages["cios"], main_shape_yardstick_ms=yardstick(torch, sc))
 
     for name, row in main.items():
         rep.rows[name].update(row)
@@ -2033,14 +2180,25 @@ def phase_srs_file(torch, rep: Report, rng, dev, seed: int, mpt: dict) -> dict:
     want, pms = plain_ms_of(torch, lambda: pip.PLAIN["msm"](params.g1_powers, sc, c=params.committer.c,
                                                              sublanes=params.committer.sublanes))
     check_equal(f"pippenger msm at n={n} (the loaded SRS)", max_abs_err(torch, got_g, want))
-    if group.to_affine_ints(got_g) != group.to_affine_ints(msmmod.MSM(params.g1_powers)(sc)):
-        raise AssertionError(f"pippenger msm differs from C's msm at n={n}")
+    c_msm = msmmod.MSM(params.g1_powers)
+    bits = ff.to_tensor(ff.words_from_ints(list(rng.integers(0, 2, n))), dev)
+    for label, s_ in (("random", sc), ("all-zero", torch.zeros_like(sc)), ("0/1", bits)):
+        own = got_g if s_ is sc else params.committer(s_)
+        if group.to_affine_ints(own) != group.to_affine_ints(c_msm(s_)):
+            raise AssertionError(f"pippenger msm differs from C's msm at n={n} ({label} scalars)")
+    del c_msm
     ms = cuda_ms(torch, lambda: params.committer(sc), reps=3)
+    stages = stage_ms(torch, lambda marks: pip.msm_affine(params.committer.affine, sc, c=params.committer.c,
+                                                          sublanes=params.committer.sublanes, marks=marks))
     entry = main_shape_entry("pippenger", f"n={n}, c=4 unsigned, the loaded SRS", ms, pms / 1e3, "whole",
                              128 * n + 96, pippenger_int_ops(torch, sc, params.committer.c, False,
                                                              params.committer.sublanes))
-    log("  pippenger at the loaded SRS equals its plain version word for word and C's msm (affine)")
-    entry["main_shape_held_to"] = "its plain version, word for word; C's msm, affine"
+    log("  pippenger at the loaded SRS equals its plain version word for word and C's msm (affine) on random, "
+        "all-zero and 0/1 scalars; stages " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+    entry["main_shape_held_to"] = ("its plain version, word for word; C's msm, affine (random, all-zero and "
+                                   "0/1 scalars)")
+    entry["main_shape_stages_ms"] = stages
+    entry["main_shape_yardstick_ms"] = yardstick(torch, sc)
     rep.rows["pippenger"].update(entry)
     return {"times": times, "launches": launches, "composites": meter.summary()}
 
@@ -2149,7 +2307,20 @@ def phase_mesh(torch, rep: Report, gen, rng, dev, seed: int, mpt: dict) -> dict:
             raise AssertionError(f"mesh functions: kernels never launched {missing}, "
                                  f"collectives {api_collectives}")
         mesh_ms = {c: cuda_ms(torch, lambda c=c: pm.sharded_msm_t(mesh, pts, sc, c=c), reps=1) for c in (4, 16)}
-        g16_ms = cuda_ms(torch, lambda: pip.msm(pts, sc, c=16, sublanes=MESH_SUBLANES), reps=1)
+        # the engine of the mesh proof (its shard's affine bases made once),
+        # G alone over the same affine bases by stage, and on all-zero and 0/1
+        # scalars against C
+        engine = pm.MeshMSM(mesh, pts)
+        engine_ms = cuda_ms(torch, lambda: engine(sc), reps=3)
+        g16_ms = cuda_ms(torch, lambda: pip.msm_affine(engine._affine, sc, c=16, sublanes=MESH_SUBLANES), reps=3)
+        g16_stages = stage_ms(torch, lambda marks: pip.msm_affine(engine._affine, sc, c=16, sublanes=MESH_SUBLANES,
+                                                                  marks=marks))
+        c_msm = msmmod.MSM(pts)
+        bits = ff.to_tensor(ff.words_from_ints(list(rng.integers(0, 2, n))), dev)
+        for label, s_ in (("all-zero", torch.zeros_like(sc)), ("0/1", bits)):
+            if group.to_affine_ints(engine(s_)) != group.to_affine_ints(c_msm(s_)):
+                raise AssertionError(f"MeshMSM differs from C's msm at n={n} ({label} scalars)")
+        del c_msm, bits
         ntt_ms = {kk: cuda_ms(torch, lambda kk=kk: pm.sharded_ntt_t(mesh, cols[kk], kk)) for kk in cols}
         part = pip.msm(pts[:MESH_SMALL], sc[:MESH_SMALL], c=4, sublanes=MESH_SUBLANES)
         gather_ms = cuda_ms(torch, lambda: pm._gather_fold(mesh, part, group.add), reps=20)
@@ -2157,8 +2328,11 @@ def phase_mesh(torch, rep: Report, gen, rng, dev, seed: int, mpt: dict) -> dict:
             f"sharded_msm_t equals G's msm word for word; sharded_ntt_batch equals B (16 columns, k={k}); "
             f"sharded_ntt_t and its inverse equal I's ntt_t at k={k} and 22 (and its plain version at "
             f"k={k}); sharded_msm_t c=16 {mesh_ms[16]:.2f} ms (G's msm alone {g16_ms:.2f} ms), c=4 "
-            f"{mesh_ms[4]:.2f} ms; sharded_ntt_t {ntt_ms[k]:.4f} ms at k={k}, {ntt_ms[22]:.4f} ms at k=22; "
+            f"{mesh_ms[4]:.2f} ms; MeshMSM {engine_ms:.2f} ms (equal to C's msm on all-zero and 0/1 scalars), "
+            f"G's stages " + json.dumps({key: round(v, 4) for key, v in g16_stages.items()}) + "; "
+            f"sharded_ntt_t {ntt_ms[k]:.4f} ms at k={k}, {ntt_ms[22]:.4f} ms at k=22; "
             f"all_gather + fold {gather_ms:.4f} ms")
+        del engine
         del cols, part
         # the mesh MSM at MESH_SMALL points against its plain version
         # (G's and C's plain versions around the same NCCL gather)
@@ -2171,13 +2345,12 @@ def phase_mesh(torch, rep: Report, gen, rng, dev, seed: int, mpt: dict) -> dict:
                    128 * MESH_SMALL + 96 * 2,
                    pippenger_int_ops(torch, small[1], 4, False, MESH_SUBLANES))
         del small_got, plain, small
-        # G's segmented fold at the mesh engine's c = 16, Lw = 128 (256
-        # segments of 256 buckets per window) against its plain version, on
-        # MESH_PLAIN16 points: the plain fold walks every bucket whatever n
-        # is, its accumulation 8,192 steps per lane at 2^20
+        # G at the mesh engine's c = 16 (C's sorted accumulation and the fold
+        # in 14 levels) against its plain version, on MESH_PLAIN16 points:
+        # the plain fold walks every bucket whatever n is
         small = (pts[:MESH_PLAIN16], sc[:MESH_PLAIN16])
-        if pip.fold_segments(pip.num_buckets(16, False)) != (256, 256):
-            raise AssertionError("c=16 does not fold in 256 segments of 256 buckets")
+        if len(msmmod.fold_levels(pip.num_buckets(16, False))) != 14:
+            raise AssertionError("c=16 does not fold in 14 levels")
         small_got = pm.sharded_msm_t(mesh, *small, c=16)
         plain, plain16_ms = plain_ms_of(torch, lambda: pm.PLAIN["sharded_msm_t"](mesh, *small, c=16))
         plain16_err = max_abs_err(torch, small_got, plain)
@@ -2234,14 +2407,16 @@ def phase_mesh(torch, rep: Report, gen, rng, dev, seed: int, mpt: dict) -> dict:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
     entry = {
-        "main_shape": f"sharded_msm_t n={n}, c=16, Lw={MESH_SUBLANES}, world 1 (MeshMSM, the mesh proof's commit)",
-        "main_shape_ms": mesh_ms[16], "main_shape_c4_ms": mesh_ms[4], "main_shape_unsharded_ms": g16_ms,
+        "main_shape": f"MeshMSM n={n}, c=16, Lw={MESH_SUBLANES}, world 1 (the mesh proof's commit)",
+        "main_shape_ms": engine_ms, "main_shape_sharded_msm_t_ms": mesh_ms[16], "main_shape_c4_ms": mesh_ms[4],
+        "main_shape_unsharded_ms": g16_ms, "main_shape_stages_ms": g16_stages,
+        "main_shape_yardstick_ms": yardstick(torch, sc),
         "main_shape_held_to": "G's msm with the same parameters, word for word; C's msm, affine; "
                               f"its plain version on the first {MESH_PLAIN16} points, word for word",
         "main_shape_max_abs_err": plain16_err,
         "main_shape_plain_ms": plain16_ms,
         "main_shape_plain_on": f"the first {MESH_PLAIN16} points, same c=16 and Lw={MESH_SUBLANES} "
-                               "(every fold segment of every window)",
+                               "(every bucket of every window in the fold)",
         "main_shape_ms_at_plain_n": small16_ms,
         "all_gather_fold_ms": gather_ms, "sharded_ntt_t_ms": ntt_ms,
         "collectives": {"mesh_functions": api_collectives, "mesh_proof": collectives},
@@ -2417,6 +2592,8 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     built = kernels.build_all()
     log(f"phase build: {time.perf_counter() - t:.1f} s " + json.dumps({k: round(v, 1) for k, v in built.items()}))
+    ptxas = {lib: ptxas_summary(kernels.BUILD_LOGS.get(lib, "")) for lib in ("curve", "pippenger")}
+    log("  ptxas -v of C and G: " + json.dumps(ptxas))
 
     rep = Report()
     gen = torch.Generator().manual_seed(args.seed)
@@ -2511,6 +2688,8 @@ def main(argv=None) -> int:
             row["launches_by_path"] = {path: counts[name] for path, counts in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
 
+    rep.rows["msm"]["ptxas"] = ptxas["curve"]
+    rep.rows["pippenger"]["ptxas"] = ptxas["pippenger"]
     log(f"total: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": list(rep.rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,7 @@ import torch
 
 from zkevm_tpu.ec import pippenger as jpip
 from zkevm_tpu.ff import limbs
-from zkevm_tpu_torch.ec import goldens as g, group, pippenger as pip
+from zkevm_tpu_torch.ec import goldens as g, group, msm as msmmod, pippenger as pip
 from zkevm_tpu_torch.ff import field as ff
 
 VEC = json.loads((Path(__file__).resolve().parents[1] / "vectors" / "torch_port_kzg.json").read_text())
@@ -73,9 +73,13 @@ def test_signed_digits_match_reference(c):
 
 @pytest.mark.parametrize("c,signed", [(9, False), (10, True)])
 def test_segmented_fold_matches_golden(golden, c, signed):
-    """Windows of more than 256 buckets fold in several segments (c = 9: two;
-    signed c = 10: 513 buckets, three, the last one ragged)."""
-    assert pip.fold_segments(pip.num_buckets(c, signed))[0] > 1
+    """Windows wider than LANE_MAX_C go through C's sorted accumulation, and
+    their buckets fold in levels of segments (c = 9: 512 buckets in 64
+    segments of 8, then pairs; signed c = 10: 513 buckets in 65, then 33,
+    17, 9, 5, 3, 2, 1 pairs, each level's last segment ragged)."""
+    assert c > pip.LANE_MAX_C
+    parts = [p for p, _ in msmmod.fold_levels(pip.num_buckets(c, signed))]
+    assert parts == ([65, 33, 17, 9, 5, 3, 2, 1] if signed else [64, 32, 16, 8, 4, 2, 1])
     pts = group.from_affine_ints(POINTS[:64], "cpu")
     scalars = ff.to_tensor(ff.words_from_ints(MSM["scalars"][:64]), "cpu")
     got = pip.msm(pts, scalars, c=c, sublanes=4, signed=signed)
@@ -84,12 +88,14 @@ def test_segmented_fold_matches_golden(golden, c, signed):
 
 @pytest.mark.parametrize("signed", [False, True])
 def test_c16_fold_matches_golden(signed):
-    """At the mesh engine's c = 16 a window folds in 256 segments of 256
-    buckets (signed: 129 segments, the last one of a single bucket); one
-    window of 16-bit scalars keeps the plain fold's walk over every bucket
-    to seconds."""
+    """At the mesh engine's c = 16 a window's 65,536 buckets fold in 8,192
+    segments of 8, then in 13 levels of pairs (signed: 32,769 buckets, the
+    last segment of a level ragged); one window of 16-bit scalars keeps the
+    plain fold over every bucket to seconds."""
     c, nb = 16, pip.num_buckets(16, signed)
-    assert pip.fold_segments(nb) == ((129, 256) if signed else (256, 256))
+    levels = msmmod.fold_levels(nb)
+    assert levels[0] == ((4097, 3) if signed else (8192, 3)) and levels[-1] == (1, 1)
+    assert len(levels) == 14 and all(log_l == 1 for _, log_l in levels[1:])
     low = [s % (1 << c) for s in MSM["scalars"][:64]]
     pts = group.from_affine_ints(POINTS[:64], "cpu")
     scalars = ff.to_tensor(ff.words_from_ints(low), "cpu")

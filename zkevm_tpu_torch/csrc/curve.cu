@@ -7,24 +7,27 @@
 // msm_ps (k > 10) and msm.py msm / FixedBaseMSM (k <= 10), with
 // pippenger.py _horner. Only affine results have to match the reference.
 //
-// A point is 24 words: x, y, z (8 words each, Montgomery Fq); z = 0 is the
-// identity.
-//
-// Bound on the H100: every point operation is ~16 Montgomery products on
-// 96-byte points, so all these kernels are bound by int32 multiplies, not
-// bytes. The MSM is a bucket method with c-bit windows:
+// Bound on the H100: every point operation is 7 to 16 Montgomery products,
+// so all these kernels are bound by int32 multiplies, not bytes. The MSM is
+// a bucket method with c-bit windows over affine bases (curve.cuh):
 //   1. digits (one thread per scalar and window);
 //   2. (digit, index) pairs sorted per window (torch.sort, outside);
 //   3. bucket sums by a segmented reduction that is balanced whatever the
 //      digit distribution: each thread adds at most CH consecutive sorted
-//      points, writes runs that lie inside its chunk straight to their
-//      bucket and passes the first and last run of the chunk (which may
-//      continue in a neighbour) to the next level, CH/2 times shorter;
-//   4. sum_b b * S_b per window, by running sums over segments of buckets
-//      (one thread per segment) and a halving tree of point adds;
-//   5. Horner across windows in one thread.
-// Complete formulas everywhere, so zero scalars, identity bases and
-// repeated bases (the doubling case) need no special path.
+//      points (mixed additions from the affine bases on the first level),
+//      writes runs that lie inside its chunk straight to their bucket and
+//      passes the first and last run of the chunk (which may continue in a
+//      neighbour) to the next level, CH/2 times shorter;
+//   4. sum_b b * S_b per window by a fold in levels of segments of L items,
+//      every level on the device: one thread per (window, segment) keeps
+//      running sums over its L items and hands L * (their sum) and their
+//      weighted sum to the next level, L times shorter;
+//   5. Horner across windows in one warp, which shares each formula's
+//      independent products across its lanes.
+// Every step adds in one fixed order and uses no atomics, so two runs give
+// the same words. The MSM's kernels take a `cios` flag: 0 runs the PTX
+// carry-chain field arithmetic, 1 field.cuh's 64-bit CIOS (the two timed
+// apart by chip_smoke.py); the other kernels run the PTX form.
 
 #include "curve.cuh"
 
@@ -36,7 +39,7 @@ __global__ void g1_add_kernel(uint32_t* __restrict__ out, const uint32_t* __rest
                               const uint32_t* __restrict__ q, i64 n) {
   for (i64 i = blockIdx.x * (i64)blockDim.x + threadIdx.x; i < n;
        i += (i64)gridDim.x * blockDim.x) {
-    pt_store(out + 24 * i, pt_add(pt_load(p + 24 * i), pt_load(q + 24 * i)));
+    pt_store(out + 24 * i, pt_add<Ptx>(pt_load(p + 24 * i), pt_load(q + 24 * i)));
   }
 }
 
@@ -49,8 +52,8 @@ __global__ void g1_scalar_mul_kernel(uint32_t* __restrict__ out, const uint32_t*
     Fe s = fe_load(scalars + 8 * i);
     Pt acc = pt_identity();
     for (int bit = 0; bit < 256; bit++) {
-      if ((s.w[bit >> 5] >> (bit & 31)) & 1u) acc = pt_add(acc, base);
-      if (bit != 255) base = pt_double(base);
+      if ((s.w[bit >> 5] >> (bit & 31)) & 1u) acc = pt_add<Ptx>(acc, base);
+      if (bit != 255) base = pt_double<Ptx>(base);
     }
     pt_store(out + 24 * i, acc);
   }
@@ -73,13 +76,13 @@ __global__ void msm_digits_kernel(int* __restrict__ digits, const uint32_t* __re
 }
 
 struct AccumArgs {
-  const uint32_t* bases;  // (N, 24) when perm != nullptr
-  const int* perm;        // (W, L) sorted order -> base index, level 1 only
+  const uint32_t* affine; // (N, 16) affine bases, level 1 only
+  const int* perm;        // (W, L) sorted order -> base index (~index: the base negated), level 1
   const uint32_t* in_pts; // (W, L, 24) partial sums, later levels
   const int* digits;      // (W, L) non-decreasing per window
   uint32_t* out_pts;      // (W, 2 * NC, 24)
   int* out_digits;        // (W, 2 * NC)
-  uint32_t* buckets;      // (W, B, 24)
+  uint32_t* buckets;      // (W, B, 24), filled with the identity
   i64 L, B, NC;
   int W, CH, final_level;
 };
@@ -99,6 +102,7 @@ __device__ __forceinline__ void emit(const AccumArgs& a, i64 w, i64 c, int d, co
   }
 }
 
+template <class F>
 __global__ void msm_accumulate_kernel(AccumArgs a) {
   const i64 total = (i64)a.W * a.NC;
   for (i64 t = blockIdx.x * (i64)blockDim.x + threadIdx.x; t < total;
@@ -119,50 +123,76 @@ __global__ void msm_accumulate_kernel(AccumArgs a) {
         acc = pt_identity();
         cur = d;
       }
-      if (d != 0) {
-        const uint32_t* src = a.perm ? a.bases + 24 * (i64)a.perm[w * a.L + e]
-                                     : a.in_pts + 24 * (w * a.L + e);
-        acc = pt_add(acc, pt_load(src));
+      if (d == 0) continue;
+      if (a.perm) {
+        int idx = a.perm[w * a.L + e];
+        const bool neg = idx < 0;
+        if (neg) idx = ~idx;
+        const uint32_t* src = a.affine + 16 * (i64)idx;
+        Fe y = fe_load(src + 8);
+        if (neg) y = fq_neg<F>(y);
+        acc = pt_madd<F>(acc, fe_load(src), y);
+      } else {
+        acc = pt_add<F>(acc, pt_load(a.in_pts + 24 * (w * a.L + e)));
       }
     }
     emit(a, w, c, cur, acc, first, true);
   }
 }
 
-// seg_out[s][w] = sum over buckets b in segment s of b * S_{w,b}.
-__global__ void msm_bucket_reduce_kernel(uint32_t* __restrict__ seg_out,
-                                         const uint32_t* __restrict__ buckets, int windows, i64 B,
-                                         int seg) {
-  const i64 nseg = B / seg;
-  const i64 total = nseg * windows;
-  for (i64 t = blockIdx.x * (i64)blockDim.x + threadIdx.x; t < total;
+// One level of the fold sum_b b * X_b over the m items of each window.
+// Thread (w, j) takes items b = jL .. jL + L - 1 (past m: the identity;
+// item 0 is never read, its weight being 0): from the top down, suffix +=
+// X_b, then total += suffix for b > jL, so that suffix = S_j = sum X_b and
+// total = sum (b - jL) X_b; on levels after the first total also adds the
+// items' Y_b. It writes X'_j = L * S_j (log2 L doublings) and Y'_j = total,
+// with sum_b b X_b + sum_b Y_b = sum_j j X'_j + sum_j Y'_j; with one segment
+// left (final) it writes total, the window's sum, to out[w].
+// in: (W, m, 24) without Y, (W, m, 2, 24) with; out: (W, P, 2, 24), or
+// (W, 24) when final.
+template <class F>
+__global__ void msm_fold_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ in, int W,
+                                i64 m, int L, int log_l, int has_y, int final_level) {
+  const i64 P = (m + L - 1) / L;
+  const int stride = has_y ? 48 : 24;
+  for (i64 t = blockIdx.x * (i64)blockDim.x + threadIdx.x; t < (i64)W * P;
        t += (i64)gridDim.x * blockDim.x) {
-    i64 s = t / windows;
-    i64 w = t - s * windows;
-    i64 lo = s * seg;
-    i64 bottom = lo > 1 ? lo : 1;
-    Pt run = pt_identity();
-    Pt tot = pt_identity();
-    for (i64 b = lo + seg - 1; b >= bottom; b--) {
-      run = pt_add(run, pt_load(buckets + 24 * (w * B + b)));
-      tot = pt_add(tot, run);
+    const i64 w = t / P, j = t - w * P;
+    const uint32_t* items = in + (i64)stride * w * m;
+    Pt suffix = pt_identity();
+    Pt total = pt_identity();
+    for (int r = L - 1; r >= 0; r--) {
+      const i64 b = j * L + r;
+      if (b > 0 && b < m) suffix = pt_add<F>(suffix, pt_load(items + stride * b));
+      if (r > 0) total = pt_add<F>(total, suffix);
     }
-    // tot = sum (b - bottom + 1) S_b; add (bottom - 1) * sum S_b
-    tot = pt_add(tot, pt_mul_small(run, (uint32_t)(bottom - 1)));
-    pt_store(seg_out + 24 * t, tot);
+    if (has_y) {
+      for (int r = 0; r < L; r++) {
+        const i64 b = j * L + r;
+        if (b < m) total = pt_add<F>(total, pt_load(items + stride * b + 24));
+      }
+    }
+    if (final_level) {
+      pt_store(out + 24 * w, total);
+    } else {
+      for (int i = 0; i < log_l; i++) suffix = pt_double<F>(suffix);
+      pt_store(out + 48 * t, suffix);
+      pt_store(out + 48 * t + 24, total);
+    }
   }
 }
 
-// out = sum_w 2^(c w) wsums[w], Horner from the top window.
+// out = sum_w 2^(c w) wsums[w], Horner from the top window, in one warp.
+template <class F>
 __global__ void g1_horner_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ wsums,
                                  int windows, int c) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
+  if (blockIdx.x != 0) return;
   Pt acc = pt_identity();
   for (int w = windows - 1; w >= 0; w--) {
-    for (int i = 0; i < c; i++) acc = pt_double(acc);
-    acc = pt_add(acc, pt_load(wsums + 24 * w));
+    for (int i = 0; i < c; i++) acc = pt_double_warp<F>(acc);
+    acc = pt_add_warp<F>(acc, pt_load(wsums + 24 * w));
   }
-  pt_store(out, acc);
+  if (threadIdx.x == 0) pt_store(out, acc);
 }
 
 }  // namespace
@@ -191,12 +221,13 @@ ZK_EXPORT int zk_msm_digits(void* digits, const void* scalars, i64 n, i64 c, i64
   return (int)cudaGetLastError();
 }
 
-ZK_EXPORT int zk_msm_accumulate(const void* bases, const void* perm, const void* in_pts,
+ZK_EXPORT int zk_msm_accumulate(const void* affine, const void* perm, const void* in_pts,
                                 const void* digits, void* out_pts, void* out_digits, void* buckets,
-                                i64 L, i64 B, i64 windows, i64 ch, i64 final_level, void* stream) {
-  if (ch < 4 || L < 1) return (int)cudaErrorInvalidValue;
+                                i64 L, i64 B, i64 windows, i64 ch, i64 final_level, i64 cios,
+                                void* stream) {
+  if (ch < 4 || L < 1 || (perm == nullptr) == (in_pts == nullptr)) return (int)cudaErrorInvalidValue;
   AccumArgs a;
-  a.bases = (const uint32_t*)bases;
+  a.affine = (const uint32_t*)affine;
   a.perm = (const int*)perm;
   a.in_pts = (const uint32_t*)in_pts;
   a.digits = (const int*)digits;
@@ -209,20 +240,37 @@ ZK_EXPORT int zk_msm_accumulate(const void* bases, const void* perm, const void*
   a.W = (int)windows;
   a.CH = (int)ch;
   a.final_level = (int)final_level;
-  msm_accumulate_kernel<<<zk_blocks(a.NC * windows, 128), 128, 0, (cudaStream_t)stream>>>(a);
+  const int blocks = zk_blocks(a.NC * windows, 128);
+  if (cios)
+    msm_accumulate_kernel<Cios><<<blocks, 128, 0, (cudaStream_t)stream>>>(a);
+  else
+    msm_accumulate_kernel<Ptx><<<blocks, 128, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-ZK_EXPORT int zk_msm_bucket_reduce(void* seg_out, const void* buckets, i64 windows, i64 B, i64 seg,
-                                   void* stream) {
-  if (seg < 1 || B % seg) return (int)cudaErrorInvalidValue;
-  msm_bucket_reduce_kernel<<<zk_blocks((B / seg) * windows, 128), 128, 0, (cudaStream_t)stream>>>(
-      (uint32_t*)seg_out, (const uint32_t*)buckets, (int)windows, B, (int)seg);
+ZK_EXPORT int zk_msm_fold(void* out, const void* in, i64 windows, i64 m, i64 log_l, i64 has_y,
+                          i64 final_level, i64 cios, void* stream) {
+  if (windows < 1 || m < 1 || log_l < 1 || log_l > 8) return (int)cudaErrorInvalidValue;
+  const int L = 1 << log_l;
+  if (final_level != (m <= L)) return (int)cudaErrorInvalidValue;
+  const i64 threads = windows * ((m + L - 1) / L);
+  const int blocks = zk_blocks(threads, 64);
+  if (cios)
+    msm_fold_kernel<Cios><<<blocks, 64, 0, (cudaStream_t)stream>>>(
+        (uint32_t*)out, (const uint32_t*)in, (int)windows, m, L, (int)log_l, (int)has_y, (int)final_level);
+  else
+    msm_fold_kernel<Ptx><<<blocks, 64, 0, (cudaStream_t)stream>>>(
+        (uint32_t*)out, (const uint32_t*)in, (int)windows, m, L, (int)log_l, (int)has_y, (int)final_level);
   return (int)cudaGetLastError();
 }
 
-ZK_EXPORT int zk_g1_horner(void* out, const void* wsums, i64 windows, i64 c, void* stream) {
-  g1_horner_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((uint32_t*)out, (const uint32_t*)wsums,
-                                                      (int)windows, (int)c);
+ZK_EXPORT int zk_g1_horner(void* out, const void* wsums, i64 windows, i64 c, i64 cios, void* stream) {
+  if (windows < 1 || c < 1) return (int)cudaErrorInvalidValue;
+  if (cios)
+    g1_horner_kernel<Cios><<<1, 32, 0, (cudaStream_t)stream>>>((uint32_t*)out, (const uint32_t*)wsums,
+                                                               (int)windows, (int)c);
+  else
+    g1_horner_kernel<Ptx><<<1, 32, 0, (cudaStream_t)stream>>>((uint32_t*)out, (const uint32_t*)wsums,
+                                                              (int)windows, (int)c);
   return (int)cudaGetLastError();
 }

@@ -66,6 +66,23 @@ def neg(p: torch.Tensor) -> torch.Tensor:
     return torch.stack([p[..., 0, :], ff.neg(FQ, p[..., 1, :]), p[..., 2, :]], dim=-2)
 
 
+def _affine_with(p: torch.Tensor, inv, mul) -> torch.Tensor:
+    zi = inv(p[..., 2, :])
+    zi2 = mul(zi, zi)
+    x = mul(p[..., 0, :], zi2)
+    y = mul(p[..., 1, :], mul(zi2, zi))
+    return torch.stack([x, y], dim=-2)
+
+
+def to_affine(p: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 8) Jacobian -> (..., 2, 8) affine x = X / Z^2, y = Y / Z^3
+    (Montgomery Fq); the identity (z = 0) becomes (0, 0), which is not on
+    the curve and is the identity-base sentinel of the MSM kernels (C, G).
+    One inversion of every z (inv(0) = 0) and four products: kernel A on
+    CUDA tensors, the plain field ops on CPU tensors."""
+    return _affine_with(p, lambda z: ff.inv(FQ, z), lambda a, b: ff.mont_mul(FQ, a, b))
+
+
 # ---------------------------------------------------------------------------
 # Plain versions (plain field arithmetic, branchless selects)
 # ---------------------------------------------------------------------------
@@ -125,6 +142,49 @@ def _plain_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     out = torch.where(opposite, identity(p.shape[:-2], p.device), out)
     out = torch.where(p_inf, q, out)
     return torch.where(q_inf & ~p_inf, p, out)
+
+
+def _plain_madd(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Complete mixed addition of (..., 3, 8) Jacobian p and (..., 2, 8)
+    affine q: madd-2007-bl, as curve.cuh's pt_madd, with its cases: q = (0, 0)
+    (the identity base) gives p, an identity p gives (x2, y2, 1), equal
+    points the doubling, opposite points the identity. Its words equal
+    ``_plain_add``'s for q lifted to z = 1."""
+    batch = torch.broadcast_shapes(p.shape[:-2], q.shape[:-2])
+    p = p.expand(*batch, 3, ff.W)
+    q = q.expand(*batch, 2, ff.W)
+    x1, y1, z1 = p.unbind(-2)
+    x2, y2 = q.unbind(-2)
+    z1z1 = _mul(FQ, z1, z1)
+    u2 = _mul(FQ, x2, z1z1)
+    s2 = _mul(FQ, y2, _mul(FQ, z1, z1z1))
+    h = _sub(FQ, u2, x1)
+    r = _sub(FQ, s2, y1)
+    r = _add(FQ, r, r)
+    hh = _mul(FQ, h, h)
+    i = _add(FQ, hh, hh)
+    i = _add(FQ, i, i)
+    j = _mul(FQ, h, i)
+    v = _mul(FQ, x1, i)
+    x3 = _sub(FQ, _sub(FQ, _mul(FQ, r, r), j), _add(FQ, v, v))
+    y1j = _mul(FQ, y1, j)
+    y3 = _sub(FQ, _mul(FQ, r, _sub(FQ, v, x3)), _add(FQ, y1j, y1j))
+    zh = _add(FQ, z1, h)
+    z3 = _sub(FQ, _sub(FQ, _mul(FQ, zh, zh), z1z1), hh)
+    out = torch.stack([x3, y3, z3], dim=-2)
+
+    base_inf = (ff.is_zero(x2) & ff.is_zero(y2))[..., None, None]
+    p_inf = ff.is_zero(z1)[..., None, None] & ~base_inf
+    plain = ~base_inf & ~p_inf
+    h_zero = ff.is_zero(h)[..., None, None]
+    r_zero = ff.is_zero(r)[..., None, None]
+    same = h_zero & r_zero & plain
+    if bool(same.any()):
+        out = torch.where(same, _plain_double(p), out)
+    out = torch.where(h_zero & ~r_zero & plain, identity(batch, p.device), out)
+    lifted = torch.stack([x2, y2, FQ.mont_one(p.device).expand_as(x2)], dim=-2)
+    out = torch.where(p_inf, lifted, out)
+    return torch.where(base_inf, p, out)
 
 
 def scalar_bits(scalars: torch.Tensor) -> torch.Tensor:
@@ -232,5 +292,9 @@ def scalar_mul(p: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _plain_to_affine(p: torch.Tensor) -> torch.Tensor:
+    return _affine_with(p, lambda z: ff.PLAIN["pow"](FQ, z, FQ.modulus - 2), lambda a, b: _mul(FQ, a, b))
+
+
 PLAIN = {"add": _plain_add, "double": _plain_double, "scalar_mul": _plain_scalar_mul,
-         "sum": _plain_sum}
+         "sum": _plain_sum, "madd": _plain_madd, "to_affine": _plain_to_affine}

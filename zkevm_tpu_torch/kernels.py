@@ -38,6 +38,8 @@ NVCC_FLAGS = (
     "-shared",
     "-Xcompiler",
     "-fPIC",
+    "-Xptxas",
+    "-v",  # registers, stack and spills of every kernel, kept in BUILD_LOGS
 )
 
 # Launch counts by kernel name; a name covers every C entry point of one
@@ -61,6 +63,7 @@ KERNEL_NAMES = (
     "quotient",
 )
 _counts = {name: 0 for name in KERNEL_NAMES}
+BUILD_LOGS: dict[str, str] = {}  # nvcc's output for each library this process compiled
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], object] = {}
@@ -118,6 +121,7 @@ def build_all() -> dict[str, float]:
     seconds, errors = {}, []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
+        BUILD_LOGS[name] = log
         seconds[name] = time.perf_counter() - start
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")

@@ -186,13 +186,16 @@ def sharded_msm_t_scan(mesh: Mesh, points: torch.Tensor, scalars: torch.Tensor, 
     return _scan_msm(mesh, points, scalars, num_bits)
 
 
+SUBLANES = 128  # the reference's sharded_msm_t lanes
+
+
 def _sharded_msm_t(mesh, points, scalars, c, num_bits, sublanes, msm, add) -> torch.Tensor:
     pts, sc = _msm_shard(mesh, points, scalars)
     return _gather_fold(mesh, msm(pts, sc, c=c, num_bits=num_bits, sublanes=sublanes), add)
 
 
 def sharded_msm_t(mesh: Mesh, points: torch.Tensor, scalars: torch.Tensor, *, c: int = 4,
-                  num_bits: int = 256, sublanes: int = 128) -> torch.Tensor:
+                  num_bits: int = 256, sublanes: int = SUBLANES) -> torch.Tensor:
     """Point-sharded Pippenger MSM (the commit hot path): each rank runs
     kernel G (``ec/pippenger.py`` ``msm``, c-bit windows, Lw = sublanes) on
     its shard; the partials ride the gather and fold. Returns one (3, 8)
@@ -207,10 +210,12 @@ class MeshMSM:
     ``ParamsKZG.use_mesh`` installs it, so that every commitment of keygen
     and create_proof runs point-sharded over the mesh. scan=True goes
     through sharded_msm_t_scan (C's double-and-add), scan=False through
-    sharded_msm_t at window c (kernel G). On the CPU the scan engine keeps
-    the doubling table of its shard, as ``ec/msm.py``'s MSM keeps its
-    bases', and sums with C's plain MSM: the plain per-lane double-and-add
-    would double every base 255 times on each call."""
+    sharded_msm_t at window c (kernel G), over the affine copy of its shard
+    that G's engine keeps (``group.to_affine``, made once here). On the CPU
+    the scan engine keeps the doubling table of its shard, as
+    ``ec/msm.py``'s MSM keeps its bases', and sums with C's plain MSM: the
+    plain per-lane double-and-add would double every base 255 times on each
+    call."""
 
     def __init__(self, mesh: Mesh, points: torch.Tensor, *, scan: bool = False, c: int = 16,
                  num_bits: int = 256):
@@ -223,6 +228,7 @@ class MeshMSM:
         self.num_bits = num_bits
         self.n = points.shape[0]
         self._table = None
+        self._affine = None if scan else group.to_affine(mesh.shard(points))
 
     def __call__(self, scalars: torch.Tensor) -> torch.Tensor:
         if scalars.shape != (self.n, ff.W):
@@ -231,7 +237,9 @@ class MeshMSM:
             if self._table is None and self.points.device.type == "cpu":
                 self._table = group.doubling_table(self.mesh.shard(self.points))
             return _scan_msm(self.mesh, self.points, scalars, self.num_bits, self._table)
-        return sharded_msm_t(self.mesh, self.points, scalars, c=self.c, num_bits=self.num_bits)
+        part = pip.msm_affine(self._affine, self.mesh.shard(scalars), c=self.c, num_bits=self.num_bits,
+                              sublanes=SUBLANES)
+        return _gather_fold(self.mesh, part, group.add)
 
 
 # ---------------------------------------------------------------------------
@@ -278,7 +286,7 @@ def sharded_ntt_t(mesh: Mesh, a: torch.Tensor, k: int, inverse: bool = False) ->
     return _sharded_ntt_t(mesh, a, k, inverse, nttmod.ntt4_cols, nttmod.ntt4_rows, nttmod.ntt4_transpose)
 
 
-def _plain_sharded_msm_t(mesh, points, scalars, *, c=4, num_bits=256, sublanes=128):
+def _plain_sharded_msm_t(mesh, points, scalars, *, c=4, num_bits=256, sublanes=SUBLANES):
     return _sharded_msm_t(mesh, points, scalars, c, num_bits, sublanes, pip.PLAIN["msm"], group.PLAIN["add"])
 
 
