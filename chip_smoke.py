@@ -8,9 +8,10 @@ Phases, each printing its own lines before the last line:
 0. the card's name and power limit (``nvidia-smi``);
 1. build of the hand-written kernels A-J, L and M from ``zkevm_tpu_torch/csrc``;
 2. every kernel against its plain PyTorch version on the card, bit for bit,
-   with timings and bounds (Poseidon E also against the golden model; C's
-   MSM with its PTX and its 64-bit CIOS product alike; the
-   Pippenger MSM G, unsigned and signed, at 2^12 points with zero scalars,
+   with timings and bounds (Poseidon E also against the golden model; kernel
+   B's ntt, intt, coset_ntt and coset_intt with the coset shift and 1/n
+   fused into its loads and stores, against the plain transform and its
+   scalings, also at k = 25, through its three passes; the Pippenger MSM G, unsigned and signed, at 2^12 points with zero scalars,
    repeated, opposite and identity bases and scalars >= 2^255, and its wide
    windows (C's sorted accumulation) at c = 9 and 10; the opening's kernel H at 2^20; the
    four-step NTT I at k = 7, 9 and 12, and at k = 20 on one column and
@@ -42,11 +43,13 @@ Phases, each printing its own lines before the last line:
    2^20 points, the per-lane scalar multiplication over 2^20 lanes, the
    batched NTT at k=20 and the quotient's transforms at its extended k,
    the per-node quotient path's (2^20, 64, 8) field broadcasts, which M
-   replaced in the proof and the smoke still runs as M's cross-check),
+   replaced in the proof and the smoke still runs as M's cross-check, and
+   B's fused coset transform of the quotient's first part on 2 columns and
+   its coset_intt on one column at the extended k),
    each against its plain version bit for bit, timed beside its bound;
    the MSM's affine bases against the plain conversion, its result on
-   all-zero scalars, its time with the PTX and the CIOS product (equal
-   words) and by stage (digits, sort, accumulation, fold, Horner), and C,
+   all-zero scalars, its time by stage (digits, sort, accumulation, fold,
+   Horner), and C,
    and G at c = 4 and 16, over the SRS with an identity base and equal and
    opposite bases against the golden sums on random, all-zero and 0/1
    scalars;
@@ -385,8 +388,7 @@ def plain_ms_of(torch, fn) -> tuple[object, float]:
 
 def ptxas_summary(log: str) -> dict:
     """{kernel: registers, stack, spill bytes} from nvcc's ``-Xptxas -v``
-    output; a template kernel is named with its field arithmetic (Ptx,
-    Cios)."""
+    output; a template kernel is named with its field arithmetic (Ptx)."""
     import re
 
     out, name = {}, None
@@ -400,7 +402,7 @@ def ptxas_summary(log: str) -> dict:
                     j += 1
                 parts.append(mangled[j : j + int(mangled[i:j])])
                 i = j + int(mangled[i:j])
-            policy = re.search(r"(?:zk|S_)\d+(Ptx|Cios)", mangled)
+            policy = re.search(r"(?:zk|S_)\d+(Ptx)", mangled)
             name = (parts[-1] if parts else mangled) + (f"<{policy.group(1)}>" if policy else "")
             out[name] = {}
             continue
@@ -734,19 +736,23 @@ def phase_ntt(torch, rep: Report, gen, dev, k_small: int = 16, k_full: int = 20)
 
     k = k_small
     a = random_field(torch, FR, 4 << k, gen, dev).reshape(4, 1 << k, 8)
+    n_inv = FR.const(pow(1 << k, FR.modulus - 2, FR.modulus), dev)
     for name, kern in (("ntt", lambda: nt.ntt(a)), ("intt", lambda: nt.intt(a)),
-                       ("coset_ntt", lambda: nt.coset_ntt(a, 7))):
+                       ("coset_ntt", lambda: nt.coset_ntt(a, 7)), ("coset_intt", lambda: nt.coset_intt(a, 7))):
         got = kern()
         if name == "ntt":
             want = nt.PLAIN["fft"](a, k, nt._omega_powers(k, False, str(dev)))
         elif name == "intt":
             want = nt.PLAIN["fft"](a, k, nt._omega_powers(k, True, str(dev)))
-            want = ff.PLAIN["mul"](FR, want, FR.const(pow(1 << k, FR.modulus - 2, FR.modulus), dev))
-        else:
-            scaled = ff.PLAIN["mul"](FR, a, nt.power_table(7, 1 << k, dev))
+            want = ff.PLAIN["mul"](FR, want, n_inv)
+        elif name == "coset_ntt":
+            scaled = ff.PLAIN["mul"](FR, a, plain_powers(torch, 7, 1 << k, dev))
             want = nt.PLAIN["fft"](scaled, k, nt._omega_powers(k, False, str(dev)))
+        else:
+            want = ff.PLAIN["mul"](FR, nt.PLAIN["fft"](a, k, nt._omega_powers(k, True, str(dev))), n_inv)
+            want = ff.PLAIN["mul"](FR, want, plain_powers(torch, pow(7, FR.modulus - 2, FR.modulus), 1 << k, dev))
         check_equal(f"{name} k={k}", max_abs_err(torch, got, want))
-    log(f"  ntt intt coset_ntt equal at k={k}, batch 4")
+    log(f"  ntt intt coset_ntt coset_intt (the shift and 1/n fused) equal at k={k}, batch 4")
     k = k_full
     x = random_field(torch, FR, 1 << k, gen, dev)
     if not torch.equal(nt.intt(nt.ntt(x)), x):
@@ -760,6 +766,19 @@ def phase_ntt(torch, rep: Report, gen, dev, k_small: int = 16, k_full: int = 20)
     ms = cuda_ms(torch, lambda: nt.ntt(x))
     n = 1 << k
     rep.record("ntt", f"({n}, 8) Fr, k={k}", err, ms, pms, 64 * n, radix2_int_ops(k))
+    del x, got, want
+    k = k_full + 5  # above 2^24 elements: B's three passes (fft_passes)
+    x = random_field(torch, FR, 1 << k, gen, dev)
+    got = nt.coset_ntt(x, 7)
+    want = nt.PLAIN["fft"](ff.PLAIN["mul"](FR, x, plain_powers(torch, 7, 1 << k, dev)), k,
+                           nt._omega_powers(k, False, str(dev)))
+    check_equal(f"coset_ntt k={k}", max_abs_err(torch, got, want))
+    if not torch.equal(nt.coset_intt(got, 7), x):
+        raise AssertionError(f"coset_intt(coset_ntt(x)) != x at k={k}")
+    del x, got, want
+    nt._omega_powers.cache_clear()  # its 2^25 tables (1 GiB) would count in every later phase's peak
+    log(f"  coset_ntt equal to the plain transform and coset_intt its inverse at k={k} ({len(nt.fft_passes(k))} "
+        "passes)")
 
 
 def phase_ntt4(torch, rep: Report, gen, dev, ks=(7, 9, 12), batch: int = 2) -> None:
@@ -938,10 +957,7 @@ def phase_curve(torch, rep: Report, rng, dev, m: int = 4096, lanes: int = 256,
         want, pms = plain_ms_of(torch, lambda: msmmod.plain_msm(bases, s, table))
         if group.to_affine_ints(got) != group.to_affine_ints(want):
             raise AssertionError(f"msm differs from the plain version at n={n} ({label} scalars)")
-        if not torch.equal(engine(s, cios=True), got):
-            raise AssertionError(f"msm with field.cuh's CIOS product differs from the PTX product at n={n}")
-    log(f"  msm equals the plain version at n={n} (random and 0/1 scalars), with the PTX and the CIOS "
-        "product alike")
+    log(f"  msm equals the plain version at n={n} (random and 0/1 scalars)")
     ms = cuda_ms(torch, lambda: msmmod.msm(bases, sc))
     rep.record("msm", f"n={n}, random scalars", 0, ms, pms, 128 * n,
                msm_int_ops(torch, sc, msmmod.window_bits(n)))
@@ -1736,7 +1752,20 @@ def phase_main_shapes(torch, rep: Report, gen, rng, dev, params, domain, *, widt
     del got, want
     record("ntt", f"({batch}, {n}, 8) Fr, k={k}", cuda_ms(torch, lambda: nt.ntt(big, k), reps=3),
            pms / 1e3, "whole", 64 * batch * n, batch * radix2_int_ops(k))
+    # the quotient's coset transform of its first part (shift g), its powers
+    # fused into B's loads, on 2 columns against the plain scaling and fft
+    two = big[:2].contiguous()
     del big
+    shift = domain.g_coset
+    got = nt.coset_ntt(two, shift)
+    want, pms = plain_ms_of(torch, lambda: nt.PLAIN["fft"](mul(FR, two, plain_powers(torch, shift, n, dev)), k, tw))
+    check_equal(f"coset_ntt (2, {n}) batch", max_abs_err(torch, got, want))
+    del got, want
+    main["ntt"].update(
+        coset_2_columns_ms=cuda_ms(torch, lambda: nt.coset_ntt(two, shift), reps=5),
+        coset_2_columns_bound_ms=bound(64 * 2 * n + 32 * n, 2 * (radix2_int_ops(k) + n * MUL_INT_OPS))[0],
+        coset_2_columns_plain_ms=pms)
+    del two
     ek, en = domain.extended_k, domain.extended_n
     h_ext = random_field(torch, FR, en, gen, dev)
     got_div = domain.divide_by_vanishing_poly(h_ext)
@@ -1758,9 +1787,17 @@ def phase_main_shapes(torch, rep: Report, gen, rng, dev, params, domain, *, widt
 
     want, pms = plain_ms_of(torch, plain_extended_to_coeff)
     check_equal(f"extended_to_coeff k={ek}", max_abs_err(torch, got, want))
+    # coset_intt at the extended k, one column: the inverse transform with
+    # shift^-i / n fused into B's stores
+    main["ntt"].update(
+        coset_intt_extended_shape=f"({en}, 8) Fr, k={ek}",
+        coset_intt_extended_ms=cuda_ms(torch, lambda: domain.extended_to_coeff(got_div), reps=3),
+        coset_intt_extended_bound_ms=bound(96 * en, radix2_int_ops(ek) + en * MUL_INT_OPS)[0],
+        coset_intt_extended_plain_ms=pms)
     del got, got_div, want, coset
-    log(f"  twiddles, ntt ({batch}, {n}, 8), divide_by_vanishing_poly and extended_to_coeff "
-        f"(k={ek}) equal; plain extended_to_coeff {pms / 1e3:.2f} s")
+    log(f"  twiddles, ntt ({batch}, {n}, 8), coset_ntt (2, {n}, 8), divide_by_vanishing_poly and "
+        f"extended_to_coeff (k={ek}, coset_intt) equal; plain extended_to_coeff {pms / 1e3:.2f} s; "
+        + json.dumps({key: v for key, v in main["ntt"].items() if key.startswith("coset")}))
 
     # -- per-lane scalar multiplication with one base over all n lanes (the
     # SRS), held on lanes_checked lanes (0, 1 and r - 1 among them)
@@ -1821,19 +1858,9 @@ def phase_main_shapes(torch, rep: Report, gen, rng, dev, params, domain, *, widt
     # plain conversion on lanes_checked of them
     if not torch.equal(engine.affine[idx], group.PLAIN["to_affine"](params.g1_powers[idx])):
         raise AssertionError(f"to_affine of the SRS differs from the plain version on {lanes_checked} bases")
-    # the product: PTX carry chains (the kernels') against field.cuh's 64-bit
-    # CIOS on the same MSM, word for word, then timed in turns
-    if not torch.equal(engine(sc, cios=True), got["random"]):
-        raise AssertionError(f"msm with field.cuh's CIOS product differs from the PTX product at n={n}")
-    turns = [("ptx", {}), ("cios", {"cios": True}), ("cios", {"cios": True}), ("ptx", {})]
-    product_ms = {"ptx": 0.0, "cios": 0.0}
-    for name, kw in turns:
-        product_ms[name] += cuda_ms(torch, lambda kw=kw: engine(sc, **kw), reps=3) / 2
-    stages = {"ptx": stage_ms(torch, lambda marks: engine(sc, marks=marks)),
-              "cios": stage_ms(torch, lambda marks: engine(sc, cios=True, marks=marks))}
-    log(f"  msm at n={n}: PTX product {product_ms['ptx']:.4f} ms, CIOS product {product_ms['cios']:.4f} ms "
-        "(equal words); stages " + json.dumps({k: {s_: round(v, 4) for s_, v in st.items()}
-                                                for k, st in stages.items()}))
+    msm_ms = cuda_ms(torch, lambda: engine(sc), reps=3)
+    stages = stage_ms(torch, lambda marks: engine(sc, marks=marks))
+    log(f"  msm at n={n}: {msm_ms:.4f} ms; stages " + json.dumps({s_: round(v, 4) for s_, v in stages.items()}))
     # edge cases over the 2^20 unsafe_setup bases: an identity base, equal
     # and opposite bases; C, and G at c = 4 and 16 over the same bases,
     # against the golden sum on random, all-zero and 0/1 scalars
@@ -1854,11 +1881,10 @@ def phase_main_shapes(torch, rep: Report, gen, rng, dev, params, domain, *, widt
     del c_edge, g_affine, edited
     log(f"  msm, pippenger c=4 and c=16 over the 2^20 SRS with an identity base, equal and opposite bases: "
         "equal to the golden sums on random, all-zero and 0/1 scalars")
-    record("msm", f"n={n}, random scalars", product_ms["ptx"],
+    record("msm", f"n={n}, random scalars", msm_ms,
            seconds["table"] + seconds["random"], f"{n // msm_chunk} chunks of {msm_chunk} points",
            128 * n, msm_int_ops(torch, sc, msmmod.window_bits(n)))
-    main["msm"].update(main_shape_cios_ms=product_ms["cios"], main_shape_stages_ms=stages["ptx"],
-                       main_shape_stages_cios_ms=stages["cios"], main_shape_yardstick_ms=yardstick(torch, sc))
+    main["msm"].update(main_shape_stages_ms=stages, main_shape_yardstick_ms=yardstick(torch, sc))
 
     for name, row in main.items():
         rep.rows[name].update(row)
@@ -2592,8 +2618,8 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     built = kernels.build_all()
     log(f"phase build: {time.perf_counter() - t:.1f} s " + json.dumps({k: round(v, 1) for k, v in built.items()}))
-    ptxas = {lib: ptxas_summary(kernels.BUILD_LOGS.get(lib, "")) for lib in ("curve", "pippenger")}
-    log("  ptxas -v of C and G: " + json.dumps(ptxas))
+    ptxas = {lib: ptxas_summary(kernels.BUILD_LOGS.get(lib, "")) for lib in ("curve", "pippenger", "quotient", "ntt")}
+    log("  ptxas -v of C, G, M and B: " + json.dumps(ptxas))
 
     rep = Report()
     gen = torch.Generator().manual_seed(args.seed)
@@ -2690,6 +2716,8 @@ def main(argv=None) -> int:
 
     rep.rows["msm"]["ptxas"] = ptxas["curve"]
     rep.rows["pippenger"]["ptxas"] = ptxas["pippenger"]
+    rep.rows["quotient"]["ptxas"] = ptxas["quotient"]
+    rep.rows["ntt"]["ptxas"] = ptxas["ntt"]
     log(f"total: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": list(rep.rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -160,28 +160,38 @@ def test_engines_keep_affine_bases(rng):
 
 
 # ---------------------------------------------------------------------------
-# curve.cuh's PTX field arithmetic, run on the CPU through a model of its
-# opcodes (the card is where it compiles; this holds the carry chains' text)
+# field.cuh's PTX field arithmetic (kernels A-I and M; curve.cuh's Ptx calls
+# it), run on the CPU through a model of its opcodes for both moduli (the
+# card is where it compiles; this holds the carry chains' text)
 # ---------------------------------------------------------------------------
 
-CURVE_CUH = Path(__file__).resolve().parents[2] / "zkevm_tpu_torch" / "csrc" / "curve.cuh"
+CSRC = Path(__file__).resolve().parents[2] / "zkevm_tpu_torch" / "csrc"
+FIELD_CUH = CSRC / "field.cuh"
 M32 = (1 << 32) - 1
 
 
 def _ptx_asm():
-    """{function name: (PTX lines, operand expressions)} of struct Ptx."""
-    src = CURVE_CUH.read_text()
-    body = src[src.index("struct Ptx {"): src.index("struct Cios {")]
+    """{function name: (PTX lines, operand expressions)} of field.cuh's
+    functions that hold an asm statement, with ZK_MOD_OPERANDS(F) expanded."""
+    src = FIELD_CUH.read_text()
+    macro = re.search(r"#define ZK_MOD_OPERANDS\(F\)(.*?)\n\n", src, re.S).group(1).replace("\\", " ")
     out = {}
-    for m in re.finditer(r"static __device__ __forceinline__ [\w ]+? (\w+)\([^)]*\) \{(.*?)\n  \}", body, re.S):
+    for m in re.finditer(r"__device__ __forceinline__ [\w ]+? (\w+)\([^)]*\) \{(.*?)\n\}", src, re.S):
         asm = re.search(r"asm\((.*?)\);", m.group(2), re.S)
         if asm is None:
             continue
-        parts = asm.group(1).split("\n      :")
+        parts = asm.group(1).replace("ZK_MOD_OPERANDS(F)", macro).split("\n    :")
         text = "".join(re.findall(r'"((?:[^"\\]|\\.)*)"', parts[0])).replace("\\n\\t", "\n")
-        operands = [expr for sec in parts[1:] for expr in re.findall(r'"[=+]?r"\(([^)]*)\)', sec)]
+        operands = [expr for sec in parts[1:] for expr in re.findall(r'"[=+]?[rn]"\(([^)]*)\)', sec)]
         out[m.group(1)] = ([ln.strip() for ln in text.splitlines() if ln.strip()], operands)
     return out
+
+
+def _mod_constants(field: str) -> dict:
+    """Mod<field>'s p0..p7 and ninv as field.cuh states them, keyed by the
+    asm's operand expressions."""
+    body = re.search(r"template <> struct Mod<%s> \{(.*?)\};" % field, FIELD_CUH.read_text(), re.S).group(1)
+    return {f"Mod<F>::{name}": int(v, 16) for name, v in re.findall(r"(\w+) = (0x[0-9a-f]+)u", body)}
 
 
 def _run_ptx(lines, operands, env):
@@ -232,42 +242,59 @@ def _run_ptx(lines, operands, env):
     return env
 
 
-def _ptx_mul(asm, a, b):
+def _ptx_mul(asm, consts, a, b):
     t = [0] * 9
     for i in range(8):
         env = {f"t[{j}]": t[j] for j in range(9)} | {f"a.w[{j}]": a[j] for j in range(8)} | {"bi": b[i]}
-        env = _run_ptx(*asm["row"], env)
-        env = _run_ptx(*asm["redc"], env)
+        env = _run_ptx(*asm["fe_mont_row"], env)
+        env = _run_ptx(*asm["fe_mont_redc"], env | consts)
         assert env["t[0]"] == 0
         t = [env[f"t[{j}]"] for j in range(1, 9)] + [0]
-    env = _run_ptx(*asm["reduce"], {f"t[{j}]": t[j] for j in range(8)})
+    env = _run_ptx(*asm["fe_mont_reduce"], {f"t[{j}]": t[j] for j in range(8)} | consts)
     return [env[f"r.w[{j}]"] for j in range(8)]
 
 
-def _ptx_add(asm, a, b):
-    env = _run_ptx(*asm["add"], {f"a.w[{j}]": a[j] for j in range(8)} | {f"b.w[{j}]": b[j] for j in range(8)})
-    env = _run_ptx(*asm["reduce"], {f"t[{j}]": env[f"t[{j}]"] for j in range(8)})
+def _ptx_add(asm, consts, a, b):
+    env = _run_ptx(*asm["fe_add"], {f"a.w[{j}]": a[j] for j in range(8)} | {f"b.w[{j}]": b[j] for j in range(8)})
+    env = _run_ptx(*asm["fe_mont_reduce"], {f"t[{j}]": env[f"t[{j}]"] for j in range(8)} | consts)
     return [env[f"r.w[{j}]"] for j in range(8)]
 
 
-def _ptx_sub(asm, a, b):
-    env = _run_ptx(*asm["sub"], {f"a.w[{j}]": a[j] for j in range(8)} | {f"b.w[{j}]": b[j] for j in range(8)})
+def _ptx_sub(asm, consts, a, b):
+    env = _run_ptx(*asm["fe_sub"], {f"a.w[{j}]": a[j] for j in range(8)} | {f"b.w[{j}]": b[j] for j in range(8)}
+                   | consts)
     return [env[f"r.w[{j}]"] for j in range(8)]
 
 
 def test_ptx_field_text_matches_integers(rng):
-    """The Montgomery product, addition and subtraction of struct Ptx, the
-    field arithmetic of kernels C and G: edge values (0, 1, q - 1, R mod q,
-    around q/2) and random ones against Python integers."""
+    """field.cuh's Montgomery product, addition and subtraction (one PTX
+    text for both fields, the modulus as immediates from Mod<F>), for Fr
+    and for Fq: edge values (0, 1, p - 1, R mod p, around p/2) and random
+    ones against Python integers; Mod<F> holds each modulus and -p^-1 mod
+    2^32."""
     asm = _ptx_asm()
-    assert set(asm) == {"row", "redc", "reduce", "add", "sub"}
+    assert set(asm) == {"fe_mont_row", "fe_mont_redc", "fe_mont_reduce", "fe_add", "fe_sub"}
+    assert sum(ln.startswith(("mad", "mul")) for ln in asm["fe_mont_row"][0] + asm["fe_mont_redc"][0]) == 33
     words = lambda x: [(x >> (32 * j)) & M32 for j in range(8)]  # noqa: E731
     value = lambda w: sum(v << (32 * j) for j, v in enumerate(w))  # noqa: E731
-    rinv = pow(1 << 256, -1, Q)
-    edge = [0, 1, 2, Q - 1, Q - 2, (1 << 256) % Q, Q // 2, Q // 2 + 1]
-    rand = [int.from_bytes(rng.bytes(32), "little") % Q for _ in range(40)]
-    pairs = [(x, y) for x in edge for y in edge] + list(zip(rand, rand[::-1]))
-    for x, y in pairs:
-        assert value(_ptx_mul(asm, words(x), words(y))) == x * y * rinv % Q
-        assert value(_ptx_add(asm, words(x), words(y))) == (x + y) % Q
-        assert value(_ptx_sub(asm, words(x), words(y))) == (x - y) % Q
+    for field, p in (("FR", ff.FR.modulus), ("FQ", Q)):
+        consts = _mod_constants(field)
+        assert value([consts[f"Mod<F>::p{j}"] for j in range(8)]) == p
+        assert consts["Mod<F>::ninv"] == (-pow(p, -1, 1 << 32)) % (1 << 32)
+        rinv = pow(1 << 256, -1, p)
+        edge = [0, 1, 2, p - 1, p - 2, (1 << 256) % p, p // 2, p // 2 + 1]
+        rand = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(40)]
+        pairs = [(x, y) for x in edge for y in edge] + list(zip(rand, rand[::-1]))
+        for x, y in pairs:
+            assert value(_ptx_mul(asm, consts, words(x), words(y))) == x * y * rinv % p
+            assert value(_ptx_add(asm, consts, words(x), words(y))) == (x + y) % p
+            assert value(_ptx_sub(asm, consts, words(x), words(y))) == (x - y) % p
+
+
+def test_curve_arithmetic_is_field_cuh():
+    """curve.cuh holds no asm of its own: struct Ptx calls field.cuh's Fq
+    product (as a function), addition and subtraction."""
+    src = (CSRC / "curve.cuh").read_text()
+    assert "asm(" not in src and "struct Cios" not in src
+    ptx = src[src.index("struct Ptx {"):src.index("};", src.index("struct Ptx {"))]
+    assert "fe_mul_call<FQ>" in ptx and "fe_add<FQ>" in ptx and "fe_sub<FQ>" in ptx

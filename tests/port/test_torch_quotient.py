@@ -199,3 +199,125 @@ def test_h_part_on_the_cpu_launches_no_kernel(rec):
     got = prv._h_part(prot, cols, vals, dx, ch, inp["y"])
     assert kernels.launch_counts() == before
     assert torch.equal(got, q.h_part_by_nodes(prot, cols, vals, dx, ch, inp["y"]))
+
+
+# ---------------------------------------------------------------------------
+# hand-made programs: each instruction through the plain version (kernel
+# M's exact counterpart) against Python integers, and the checker's bounds
+# one at a time
+# ---------------------------------------------------------------------------
+
+N_ROWS = 4
+
+
+def _prog(code, n_regs, members=()):
+    return q.Program(code=np.asarray(code, np.int32), members=np.asarray(members, np.int32), consts=[],
+                     n_challenges=0, n_regs=n_regs, n_rows=N_ROWS, muls=0, adds=0)
+
+
+def _loads3():
+    """Columns 0, 1, 2 at rotations 0, 1, 3 (stored as n - 1 in [0, n))
+    into registers 0, 1, 2."""
+    return [[q.OP_COL, 0, 0, 0], [q.OP_COL, 1, 1, 1], [q.OP_COL, 2, 2, 3]]
+
+
+# name: (instructions after _loads3 leaving v in register 3, v from the
+# three loaded values, the constant c and the domain point x)
+OPCODE_CASES = {
+    "add": ([[q.OP_ADD, 3, 0, 1]], lambda a, b, d, c, x: a + b),
+    "sub": ([[q.OP_SUB, 3, 0, 1]], lambda a, b, d, c, x: a - b),
+    "neg": ([[q.OP_NEG, 3, 2, 0]], lambda a, b, d, c, x: -d),
+    "mul": ([[q.OP_MUL, 3, 0, 1]], lambda a, b, d, c, x: a * b),
+    "square": ([[q.OP_MUL, 3, 2, 2]], lambda a, b, d, c, x: d * d),
+    "const": ([[q.OP_CONST, 3, 1, 0], [q.OP_MUL, 3, 3, 0]], lambda a, b, d, c, x: c * a),
+    "domain_x": ([[q.OP_X, 3, 0, 0], [q.OP_SUB, 3, 3, 1]], lambda a, b, d, c, x: x - b),
+    "chain": ([[q.OP_SUB, 3, 0, 1], [q.OP_MUL, 3, 3, 2], [q.OP_ADD, 3, 3, 0], [q.OP_NEG, 1, 3, 0],
+               [q.OP_MUL, 3, 1, 1]], lambda a, b, d, c, x: ((a - b) * d + a) ** 2),
+}
+
+
+def _fr(rng, count):
+    return [int.from_bytes(rng.bytes(32), "little") % FR_MOD for _ in range(count)]
+
+
+@pytest.mark.parametrize("case", sorted(OPCODE_CASES))
+def test_opcode_program(case):
+    """One instruction (or a short chain) on three loaded columns, a
+    constant and the domain point, then two folds (v, then column 2): the
+    plain version, whole and lane by lane, against Python integers row by
+    row, rotations wrapping at n - 1."""
+    body, want = OPCODE_CASES[case]
+    rng = np.random.default_rng(len(case))
+    cols, xs, (y, c) = [_fr(rng, N_ROWS) for _ in range(3)], _fr(rng, N_ROWS), _fr(rng, 2)
+    code = _loads3() + body + [[q.OP_FOLD, 0, 3, 0], [q.OP_COL, 2, 2, 3], [q.OP_FOLD, 0, 2, 0],
+                               [q.OP_END, 0, 0, 0]]
+    prog = _prog(code, 4)
+    consts = ff.to_tensor(FR.encode_many([y, c]), "cpu")
+    q._check_program(prog, 3, 2)
+    vals = ff.to_tensor(np.stack([FR.encode_many(col) for col in cols]), "cpu")
+    dx = ff.to_tensor(FR.encode_many(xs), "cpu")
+    for lanewise in (False, True):
+        got = FR.decode_many(q.plain_evaluate(prog, vals, dx, consts, lanewise=lanewise))
+        for r in range(N_ROWS):
+            a, b, d = cols[0][r], cols[1][(r + 1) % N_ROWS], cols[2][(r + 3) % N_ROWS]
+            v = want(a, b, d, c, xs[r]) % FR_MOD
+            assert got[r] == (v * y + d) % FR_MOD, (lanewise, r)
+
+
+def test_lane_loop_program():
+    """A lane loop of width 3 over a rolled member list (columns 2, 0, 1 at
+    rotation 1), each lane times column 0 and folded in turn: the plain
+    version, whole and lane by lane, against Python integers."""
+    rng = np.random.default_rng(3)
+    cols, (y,) = [_fr(rng, N_ROWS) for _ in range(3)], _fr(rng, 1)
+    code = [[q.OP_COL, 0, 0, 0], [q.OP_LANES, 0, 3, 0], [q.OP_GROUP, 1, 0, 1], [q.OP_MUL, 1, 1, 0],
+            [q.OP_FOLD, 0, 1, 0], [q.OP_END_LANES, 0, 0, 0], [q.OP_END, 0, 0, 0]]
+    prog = _prog(code, 2, members=[2, 0, 1])
+    consts = ff.to_tensor(FR.encode_many([y]), "cpu")
+    q._check_program(prog, 3, 1)
+    vals = ff.to_tensor(np.stack([FR.encode_many(col) for col in cols]), "cpu")
+    dx = ff.to_tensor(FR.encode_many(_fr(rng, N_ROWS)), "cpu")
+    for lanewise in (False, True):
+        got = FR.decode_many(q.plain_evaluate(prog, vals, dx, consts, lanewise=lanewise))
+        for r in range(N_ROWS):
+            h = 0
+            for member in (2, 0, 1):
+                h = (h * y + cols[member][(r + 1) % N_ROWS] * cols[0][r]) % FR_MOD
+            assert got[r] == h, (lanewise, r)
+
+
+# name: (instruction index, word, value) written into the lane-loop program
+# above (3 columns, 2 registers, 1 constants row, 3 members)
+BAD_INDEX_CASES = {
+    "column": (0, 2, 3),
+    "rotation": (0, 3, N_ROWS),
+    "dst": (0, 1, 2),
+    "dst_negative": (3, 1, -1),
+    "operand_a": (3, 2, 2),
+    "operand_b": (3, 3, 2),
+    "fold_operand": (4, 2, 2),
+    "lane_width": (1, 2, 0),
+    "group_members": (2, 2, 1),
+    "group_rotation": (2, 3, -1),
+    "opcode": (5, 0, q.OP_END + 1),
+    "no_end": (6, 0, q.OP_X),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_INDEX_CASES) + ["const_row", "member_column"])
+def test_check_program_rejects_each_bad_index(case):
+    """The checker refuses each index that would take kernel M outside its
+    inputs (it checks none itself), one at a time, on a program it accepts."""
+    code = [[q.OP_COL, 0, 0, 0], [q.OP_LANES, 0, 3, 0], [q.OP_GROUP, 1, 0, 1], [q.OP_MUL, 1, 1, 0],
+            [q.OP_FOLD, 0, 1, 0], [q.OP_END_LANES, 0, 0, 0], [q.OP_END, 0, 0, 0]]
+    members = [2, 0, 1]
+    q._check_program(_prog(code, 2, members), 3, 1)
+    if case == "const_row":
+        code[3:3] = [[q.OP_CONST, 1, 1, 0]]
+    elif case == "member_column":
+        members[1] = 3
+    else:
+        i, word, value = BAD_INDEX_CASES[case]
+        code[i][word] = value
+    with pytest.raises(ValueError):
+        q._check_program(_prog(code, 2, members), 3, 1)

@@ -25,9 +25,7 @@
 //   5. Horner across windows in one warp, which shares each formula's
 //      independent products across its lanes.
 // Every step adds in one fixed order and uses no atomics, so two runs give
-// the same words. The MSM's kernels take a `cios` flag: 0 runs the PTX
-// carry-chain field arithmetic, 1 field.cuh's 64-bit CIOS (the two timed
-// apart by chip_smoke.py); the other kernels run the PTX form.
+// the same words.
 
 #include "curve.cuh"
 
@@ -223,8 +221,7 @@ ZK_EXPORT int zk_msm_digits(void* digits, const void* scalars, i64 n, i64 c, i64
 
 ZK_EXPORT int zk_msm_accumulate(const void* affine, const void* perm, const void* in_pts,
                                 const void* digits, void* out_pts, void* out_digits, void* buckets,
-                                i64 L, i64 B, i64 windows, i64 ch, i64 final_level, i64 cios,
-                                void* stream) {
+                                i64 L, i64 B, i64 windows, i64 ch, i64 final_level, void* stream) {
   if (ch < 4 || L < 1 || (perm == nullptr) == (in_pts == nullptr)) return (int)cudaErrorInvalidValue;
   AccumArgs a;
   a.affine = (const uint32_t*)affine;
@@ -241,36 +238,25 @@ ZK_EXPORT int zk_msm_accumulate(const void* affine, const void* perm, const void
   a.CH = (int)ch;
   a.final_level = (int)final_level;
   const int blocks = zk_blocks(a.NC * windows, 128);
-  if (cios)
-    msm_accumulate_kernel<Cios><<<blocks, 128, 0, (cudaStream_t)stream>>>(a);
-  else
-    msm_accumulate_kernel<Ptx><<<blocks, 128, 0, (cudaStream_t)stream>>>(a);
+  msm_accumulate_kernel<Ptx><<<blocks, 128, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 ZK_EXPORT int zk_msm_fold(void* out, const void* in, i64 windows, i64 m, i64 log_l, i64 has_y,
-                          i64 final_level, i64 cios, void* stream) {
+                          i64 final_level, void* stream) {
   if (windows < 1 || m < 1 || log_l < 1 || log_l > 8) return (int)cudaErrorInvalidValue;
   const int L = 1 << log_l;
   if (final_level != (m <= L)) return (int)cudaErrorInvalidValue;
   const i64 threads = windows * ((m + L - 1) / L);
   const int blocks = zk_blocks(threads, 64);
-  if (cios)
-    msm_fold_kernel<Cios><<<blocks, 64, 0, (cudaStream_t)stream>>>(
-        (uint32_t*)out, (const uint32_t*)in, (int)windows, m, L, (int)log_l, (int)has_y, (int)final_level);
-  else
-    msm_fold_kernel<Ptx><<<blocks, 64, 0, (cudaStream_t)stream>>>(
-        (uint32_t*)out, (const uint32_t*)in, (int)windows, m, L, (int)log_l, (int)has_y, (int)final_level);
+  msm_fold_kernel<Ptx><<<blocks, 64, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)out, (const uint32_t*)in, (int)windows, m, L, (int)log_l, (int)has_y, (int)final_level);
   return (int)cudaGetLastError();
 }
 
-ZK_EXPORT int zk_g1_horner(void* out, const void* wsums, i64 windows, i64 c, i64 cios, void* stream) {
+ZK_EXPORT int zk_g1_horner(void* out, const void* wsums, i64 windows, i64 c, void* stream) {
   if (windows < 1 || c < 1) return (int)cudaErrorInvalidValue;
-  if (cios)
-    g1_horner_kernel<Cios><<<1, 32, 0, (cudaStream_t)stream>>>((uint32_t*)out, (const uint32_t*)wsums,
-                                                               (int)windows, (int)c);
-  else
-    g1_horner_kernel<Ptx><<<1, 32, 0, (cudaStream_t)stream>>>((uint32_t*)out, (const uint32_t*)wsums,
-                                                              (int)windows, (int)c);
+  g1_horner_kernel<Ptx><<<1, 32, 0, (cudaStream_t)stream>>>((uint32_t*)out, (const uint32_t*)wsums,
+                                                            (int)windows, (int)c);
   return (int)cudaGetLastError();
 }

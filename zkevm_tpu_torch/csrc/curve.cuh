@@ -10,13 +10,8 @@
 // operation returns canonical words, so two ways of computing one formula's
 // values give the same words.
 //
-// Fq arithmetic comes in two forms with one interface (mul, add, sub):
-//   Ptx  — PTX carry chains (mad.lo.cc / madc.hi.cc / addc): the Montgomery
-//          product is CIOS over 32-bit words with one accumulator, each row
-//          a low pass and a high pass, 264 multiply instructions;
-//   Cios — field.cuh's 64-bit-accumulator CIOS (fe_mul, fe_add, fe_sub).
-// The kernels run on Ptx; the commit MSM also instantiates Cios so that a
-// run can time the two on the same work (chip_smoke.py phase 5). In both the
+// Fq arithmetic is field.cuh's PTX carry chains, through struct Ptx, the
+// one interface (mul, add, sub) the formulas are written against. The
 // product is a function of its own, not inlined (Ptx::mul says why).
 #pragma once
 
@@ -25,194 +20,10 @@
 namespace zk {
 
 struct Ptx {
-  // Each asm statement below holds whole carry chains, so the carry flag is
-  // never live between statements and the compiler may interleave the
-  // statements of independent products. tests/port/test_torch_affine.py
-  // runs this text through a model of its opcodes against integer
-  // arithmetic.
-
-  // t += a * bi: the low halves of the word products in one chain, the
-  // high halves one word up in a second.
-  static __device__ __forceinline__ void row(uint32_t t[9], const Fe& a, uint32_t bi) {
-    asm(
-      "mad.lo.cc.u32 %0, %9, %17, %0;\n\t"
-      "madc.lo.cc.u32 %1, %10, %17, %1;\n\t"
-      "madc.lo.cc.u32 %2, %11, %17, %2;\n\t"
-      "madc.lo.cc.u32 %3, %12, %17, %3;\n\t"
-      "madc.lo.cc.u32 %4, %13, %17, %4;\n\t"
-      "madc.lo.cc.u32 %5, %14, %17, %5;\n\t"
-      "madc.lo.cc.u32 %6, %15, %17, %6;\n\t"
-      "madc.lo.cc.u32 %7, %16, %17, %7;\n\t"
-      "addc.u32 %8, %8, 0;\n\t"
-      "mad.hi.cc.u32 %1, %9, %17, %1;\n\t"
-      "madc.hi.cc.u32 %2, %10, %17, %2;\n\t"
-      "madc.hi.cc.u32 %3, %11, %17, %3;\n\t"
-      "madc.hi.cc.u32 %4, %12, %17, %4;\n\t"
-      "madc.hi.cc.u32 %5, %13, %17, %5;\n\t"
-      "madc.hi.cc.u32 %6, %14, %17, %6;\n\t"
-      "madc.hi.cc.u32 %7, %15, %17, %7;\n\t"
-      "madc.hi.u32 %8, %16, %17, %8;\n\t"
-      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8])
-      : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]), "r"(a.w[4]), "r"(a.w[5]), "r"(a.w[6]), "r"(a.w[7]), "r"(bi));
-  }
-
-  // t += m q with m = t_0 (-q^{-1}) mod 2^32, which clears t_0.
-  static __device__ __forceinline__ void redc(uint32_t t[9]) {
-    asm(
-      "{\n\t"
-      ".reg .u32 zk_m;\n\t"
-      "mul.lo.u32 zk_m, %0, 0xe4866389;\n\t"
-      "mad.lo.cc.u32 %0, zk_m, 0xd87cfd47, %0;\n\t"
-      "madc.lo.cc.u32 %1, zk_m, 0x3c208c16, %1;\n\t"
-      "madc.lo.cc.u32 %2, zk_m, 0x6871ca8d, %2;\n\t"
-      "madc.lo.cc.u32 %3, zk_m, 0x97816a91, %3;\n\t"
-      "madc.lo.cc.u32 %4, zk_m, 0x8181585d, %4;\n\t"
-      "madc.lo.cc.u32 %5, zk_m, 0xb85045b6, %5;\n\t"
-      "madc.lo.cc.u32 %6, zk_m, 0xe131a029, %6;\n\t"
-      "madc.lo.cc.u32 %7, zk_m, 0x30644e72, %7;\n\t"
-      "addc.u32 %8, %8, 0;\n\t"
-      "mad.hi.cc.u32 %1, zk_m, 0xd87cfd47, %1;\n\t"
-      "madc.hi.cc.u32 %2, zk_m, 0x3c208c16, %2;\n\t"
-      "madc.hi.cc.u32 %3, zk_m, 0x6871ca8d, %3;\n\t"
-      "madc.hi.cc.u32 %4, zk_m, 0x97816a91, %4;\n\t"
-      "madc.hi.cc.u32 %5, zk_m, 0x8181585d, %5;\n\t"
-      "madc.hi.cc.u32 %6, zk_m, 0xb85045b6, %6;\n\t"
-      "madc.hi.cc.u32 %7, zk_m, 0xe131a029, %7;\n\t"
-      "madc.hi.u32 %8, zk_m, 0x30644e72, %8;\n\t"
-      "}\n\t"
-      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]));
-  }
-
-  // t - q if t >= q (t < 2q).
-  static __device__ __forceinline__ Fe reduce(const uint32_t t[8]) {
-    Fe r;
-    asm(
-      "{\n\t"
-      ".reg .u32 zk_d0, zk_d1, zk_d2, zk_d3, zk_d4, zk_d5, zk_d6, zk_d7, zk_x0, zk_x1, zk_x2, zk_x3, zk_x4, zk_x5, zk_x6, zk_x7, zk_bw, zk_nb, zk_zero;\n\t"
-      "mov.u32 zk_zero, 0;\n\t"
-      "sub.cc.u32 zk_d0, %8, 0xd87cfd47;\n\t"
-      "subc.cc.u32 zk_d1, %9, 0x3c208c16;\n\t"
-      "subc.cc.u32 zk_d2, %10, 0x6871ca8d;\n\t"
-      "subc.cc.u32 zk_d3, %11, 0x97816a91;\n\t"
-      "subc.cc.u32 zk_d4, %12, 0x8181585d;\n\t"
-      "subc.cc.u32 zk_d5, %13, 0xb85045b6;\n\t"
-      "subc.cc.u32 zk_d6, %14, 0xe131a029;\n\t"
-      "subc.cc.u32 zk_d7, %15, 0x30644e72;\n\t"
-      "subc.u32 zk_bw, zk_zero, zk_zero;\n\t"
-      "not.b32 zk_nb, zk_bw;\n\t"
-      "and.b32 zk_x0, %8, zk_bw;\n\t"
-      "and.b32 zk_x1, %9, zk_bw;\n\t"
-      "and.b32 zk_x2, %10, zk_bw;\n\t"
-      "and.b32 zk_x3, %11, zk_bw;\n\t"
-      "and.b32 zk_x4, %12, zk_bw;\n\t"
-      "and.b32 zk_x5, %13, zk_bw;\n\t"
-      "and.b32 zk_x6, %14, zk_bw;\n\t"
-      "and.b32 zk_x7, %15, zk_bw;\n\t"
-      "and.b32 zk_d0, zk_d0, zk_nb;\n\t"
-      "and.b32 zk_d1, zk_d1, zk_nb;\n\t"
-      "and.b32 zk_d2, zk_d2, zk_nb;\n\t"
-      "and.b32 zk_d3, zk_d3, zk_nb;\n\t"
-      "and.b32 zk_d4, zk_d4, zk_nb;\n\t"
-      "and.b32 zk_d5, zk_d5, zk_nb;\n\t"
-      "and.b32 zk_d6, zk_d6, zk_nb;\n\t"
-      "and.b32 zk_d7, zk_d7, zk_nb;\n\t"
-      "or.b32 %0, zk_x0, zk_d0;\n\t"
-      "or.b32 %1, zk_x1, zk_d1;\n\t"
-      "or.b32 %2, zk_x2, zk_d2;\n\t"
-      "or.b32 %3, zk_x3, zk_d3;\n\t"
-      "or.b32 %4, zk_x4, zk_d4;\n\t"
-      "or.b32 %5, zk_x5, zk_d5;\n\t"
-      "or.b32 %6, zk_x6, zk_d6;\n\t"
-      "or.b32 %7, zk_x7, zk_d7;\n\t"
-      "}\n\t"
-      : "=r"(r.w[0]), "=r"(r.w[1]), "=r"(r.w[2]), "=r"(r.w[3]), "=r"(r.w[4]), "=r"(r.w[5]), "=r"(r.w[6]), "=r"(r.w[7])
-      : "r"(t[0]), "r"(t[1]), "r"(t[2]), "r"(t[3]), "r"(t[4]), "r"(t[5]), "r"(t[6]), "r"(t[7]));
-    return r;
-  }
-
-  // Montgomery product a b / 2^256 mod q of canonical a, b: CIOS over
-  // 32-bit words, row i adding a * b_i and then m q and dropping the zero
-  // low word. t < 2q between rows and t + a b_i + m q < 2^288, so no carry
-  // leaves t_8. 264 multiply instructions; one function that every formula
-  // calls (see mul below).
-  static __device__ __forceinline__ Fe montmul(const Fe& a, const Fe& b) {
-    uint32_t t[9];
-#pragma unroll
-    for (int j = 0; j < 9; j++) t[j] = 0;
-#pragma unroll
-    for (int i = 0; i < 8; i++) {
-      row(t, a, b.w[i]);
-      redc(t);
-#pragma unroll
-      for (int j = 0; j < 8; j++) t[j] = t[j + 1];
-      t[8] = 0;
-    }
-    return reduce(t);
-  }
-
   // Not inlined: a point formula holds 7 to 16 products, and inlined
   // copies (~530 instructions each) make a kernel's hot loop outgrow the
   // instruction cache; one shared copy stays in it.
-  static __device__ __noinline__ Fe mul(Fe a, Fe b) { return montmul(a, b); }
-
-  // a + b < 2q < 2^255: no carry out of the top word.
-  static __device__ __forceinline__ Fe add(const Fe& a, const Fe& b) {
-    uint32_t t[8];
-    asm(
-      "add.cc.u32 %0, %8, %16;\n\t"
-      "addc.cc.u32 %1, %9, %17;\n\t"
-      "addc.cc.u32 %2, %10, %18;\n\t"
-      "addc.cc.u32 %3, %11, %19;\n\t"
-      "addc.cc.u32 %4, %12, %20;\n\t"
-      "addc.cc.u32 %5, %13, %21;\n\t"
-      "addc.cc.u32 %6, %14, %22;\n\t"
-      "addc.u32 %7, %15, %23;\n\t"
-      : "=r"(t[0]), "=r"(t[1]), "=r"(t[2]), "=r"(t[3]), "=r"(t[4]), "=r"(t[5]), "=r"(t[6]), "=r"(t[7])
-      : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]), "r"(a.w[4]), "r"(a.w[5]), "r"(a.w[6]), "r"(a.w[7]), "r"(b.w[0]), "r"(b.w[1]), "r"(b.w[2]), "r"(b.w[3]), "r"(b.w[4]), "r"(b.w[5]), "r"(b.w[6]), "r"(b.w[7]));
-    return reduce(t);
-  }
-
-  // a - b, plus q where it borrows.
-  static __device__ __forceinline__ Fe sub(const Fe& a, const Fe& b) {
-    Fe r;
-    asm(
-      "{\n\t"
-      ".reg .u32 zk_q0, zk_q1, zk_q2, zk_q3, zk_q4, zk_q5, zk_q6, zk_q7, zk_bw, zk_zero;\n\t"
-      "mov.u32 zk_zero, 0;\n\t"
-      "sub.cc.u32 %0, %8, %16;\n\t"
-      "subc.cc.u32 %1, %9, %17;\n\t"
-      "subc.cc.u32 %2, %10, %18;\n\t"
-      "subc.cc.u32 %3, %11, %19;\n\t"
-      "subc.cc.u32 %4, %12, %20;\n\t"
-      "subc.cc.u32 %5, %13, %21;\n\t"
-      "subc.cc.u32 %6, %14, %22;\n\t"
-      "subc.cc.u32 %7, %15, %23;\n\t"
-      "subc.u32 zk_bw, zk_zero, zk_zero;\n\t"
-      "and.b32 zk_q0, zk_bw, 0xd87cfd47;\n\t"
-      "and.b32 zk_q1, zk_bw, 0x3c208c16;\n\t"
-      "and.b32 zk_q2, zk_bw, 0x6871ca8d;\n\t"
-      "and.b32 zk_q3, zk_bw, 0x97816a91;\n\t"
-      "and.b32 zk_q4, zk_bw, 0x8181585d;\n\t"
-      "and.b32 zk_q5, zk_bw, 0xb85045b6;\n\t"
-      "and.b32 zk_q6, zk_bw, 0xe131a029;\n\t"
-      "and.b32 zk_q7, zk_bw, 0x30644e72;\n\t"
-      "add.cc.u32 %0, %0, zk_q0;\n\t"
-      "addc.cc.u32 %1, %1, zk_q1;\n\t"
-      "addc.cc.u32 %2, %2, zk_q2;\n\t"
-      "addc.cc.u32 %3, %3, zk_q3;\n\t"
-      "addc.cc.u32 %4, %4, zk_q4;\n\t"
-      "addc.cc.u32 %5, %5, zk_q5;\n\t"
-      "addc.cc.u32 %6, %6, zk_q6;\n\t"
-      "addc.u32 %7, %7, zk_q7;\n\t"
-      "}\n\t"
-      : "=r"(r.w[0]), "=r"(r.w[1]), "=r"(r.w[2]), "=r"(r.w[3]), "=r"(r.w[4]), "=r"(r.w[5]), "=r"(r.w[6]), "=r"(r.w[7])
-      : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]), "r"(a.w[4]), "r"(a.w[5]), "r"(a.w[6]), "r"(a.w[7]), "r"(b.w[0]), "r"(b.w[1]), "r"(b.w[2]), "r"(b.w[3]), "r"(b.w[4]), "r"(b.w[5]), "r"(b.w[6]), "r"(b.w[7]));
-    return r;
-  }
-};
-
-struct Cios {
-  static __device__ __noinline__ Fe mul(Fe a, Fe b) { return fe_mul<FQ>(a, b); }
+  static __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) { return fe_mul_call<FQ>(a, b); }
   static __device__ __forceinline__ Fe add(const Fe& a, const Fe& b) { return fe_add<FQ>(a, b); }
   static __device__ __forceinline__ Fe sub(const Fe& a, const Fe& b) { return fe_sub<FQ>(a, b); }
 };

@@ -29,7 +29,7 @@
 // n2 / parts elements (the layout all_to_all leaves on one rank of the
 // sharded transform), so the mesh needs no rearranging copy.
 
-#include "field.cuh"
+#include "ntt_common.cuh"
 
 using namespace zk;
 
@@ -39,50 +39,6 @@ constexpr int TILE_LOG = 11;     // elements the sub-transforms of one block hol
 constexpr int MAX_SUB_LOG = 12;  // the largest sub-transform: 2^12 elements, 128 KB
 constexpr int THREADS = 256;
 constexpr int TT = 32;           // transpose tile: 32 x 32 elements
-
-__device__ __forceinline__ void copy_elem(uint32_t* dst, const uint32_t* src) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  d[0] = s[0];
-  d[1] = s[1];
-}
-
-__device__ __forceinline__ int bitrev(int i, int bits) {
-  return bits ? (int)(__brev((unsigned)i) >> (32 - bits)) : 0;
-}
-
-// w^e for 0 <= e < 2^k from the table of w^j, j < 2^(k-1).
-__device__ __forceinline__ Fe power(const uint32_t* tw, i64 e, int k) {
-  const i64 half = 1LL << (k - 1);
-  if (e < half) return fe_load(tw + 8 * e);
-  return fe_neg<FR>(fe_load(tw + 8 * (e - half)));
-}
-
-// The stages of `count` size-2^logm radix-2 DIT transforms held one after
-// another in shared memory, inputs in bit-reversed order, outputs natural.
-// Butterfly j of stage s takes w^(j * 2^(k - s)).
-__device__ void sub_transforms(uint32_t* sh, const uint32_t* __restrict__ tw, int k, int logm,
-                               int count) {
-  if (logm == 0) return;
-  const int half_m = 1 << (logm - 1);
-  const int total = count * half_m;
-  for (int s = 1; s <= logm; s++) {
-    const int half = 1 << (s - 1);
-    for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      const int which = t >> (logm - 1);
-      const int u = t & (half_m - 1);
-      const int j = u & (half - 1);
-      const int i0 = (which << logm) + ((u >> (s - 1)) << s) + j;
-      const int i1 = i0 + half;
-      Fe w = fe_load(tw + 8 * ((i64)j << (k - s)));
-      Fe x0 = fe_load(sh + 8 * i0);
-      Fe x1 = fe_mul<FR>(w, fe_load(sh + 8 * i1));
-      fe_store(sh + 8 * i0, fe_add<FR>(x0, x1));
-      fe_store(sh + 8 * i1, fe_sub<FR>(x0, x1));
-    }
-    __syncthreads();
-  }
-}
 
 // in: `batch` matrices of n1 = 2^k1 rows, row pitch `ld` elements; columns
 // [0, ncols) of each (in points at the first). out: (batch, n1, ncols).

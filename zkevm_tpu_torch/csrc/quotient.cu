@@ -29,6 +29,10 @@
 // reads row (r + rot) mod n in place and a rolled group query reads its
 // lane's member column from a pre-rolled index list: no copy of a column
 // is ever made. Column offsets are 64-bit (part_vals exceeds 2^31 words).
+// The product is field.cuh's, inlined into the two cases that use it (a
+// called copy ran slower here, scripts/probe_quotient.py --alt times both;
+// so did asynchronous loads, fused opcodes and the last result kept in
+// registers, timed in turns against this kernel).
 
 #include "field.cuh"
 

@@ -60,8 +60,8 @@ def sort_digits(digits: torch.Tensor, signed: bool = True):
     return (keys.to(torch.int32) + (1 << 15)).contiguous(), perm.contiguous()
 
 
-def accumulate(affine: torch.Tensor, sd: torch.Tensor, perm: torch.Tensor, nb: int, kernel: str,
-               cios: bool = False) -> torch.Tensor:
+def accumulate(affine: torch.Tensor, sd: torch.Tensor, perm: torch.Tensor, nb: int, kernel: str
+               ) -> torch.Tensor:
     """Bucket sums (W, nb, 3, 8) of the sorted digits ``sd`` (W, n) and
     their bases ``affine[perm]`` by curve.cu's segmented accumulation, one
     launch per level; the launches count towards ``kernel``."""
@@ -81,7 +81,7 @@ def accumulate(affine: torch.Tensor, sd: torch.Tensor, perm: torch.Tensor, nb: i
             perm.data_ptr() if first else 0,
             0 if first else pts.data_ptr(),
             digits.data_ptr(), out_pts.data_ptr(), out_digits.data_ptr(), buckets.data_ptr(),
-            length, nb, windows, ch, int(final), int(cios),
+            length, nb, windows, ch, int(final),
         )
         if final:
             return buckets
@@ -99,7 +99,7 @@ def fold_levels(m: int) -> list[tuple[int, int]]:
     return levels
 
 
-def fold(buckets: torch.Tensor, kernel: str, cios: bool = False) -> torch.Tensor:
+def fold(buckets: torch.Tensor, kernel: str) -> torch.Tensor:
     """(W, m, 3, 8) buckets -> (W, 3, 8) window sums sum_b b * S_b by
     curve.cu's fold, one launch per level of 2^FOLD_LOG-item segments."""
     windows, m = buckets.shape[:2]
@@ -110,21 +110,20 @@ def fold(buckets: torch.Tensor, kernel: str, cios: bool = False) -> torch.Tensor
         shape = (windows, 3, ff.W) if final else (windows, parts, 2, 3, ff.W)
         out = torch.empty(shape, dtype=torch.int32, device=dev)
         kernels.launch(kernel, "curve", "zk_msm_fold", out.data_ptr(), cur.data_ptr(), windows, m,
-                       log_l, has_y, int(final), int(cios))
+                       log_l, has_y, int(final))
         cur, m, has_y = out, parts, 1
     return cur
 
 
-def horner(wsums: torch.Tensor, c: int, kernel: str, cios: bool = False) -> torch.Tensor:
+def horner(wsums: torch.Tensor, c: int, kernel: str) -> torch.Tensor:
     """sum_w 2^(c w) wsums[w] -> one (3, 8) point (curve.cu's warp Horner)."""
     out = torch.empty(3, ff.W, dtype=torch.int32, device=wsums.device)
     kernels.launch(kernel, "curve", "zk_g1_horner", out.data_ptr(), wsums.contiguous().data_ptr(),
-                   wsums.shape[0], c, int(cios))
+                   wsums.shape[0], c)
     return out
 
 
-def _launch_msm(affine: torch.Tensor, scalars: torch.Tensor, cios: bool = False,
-                marks: list | None = None) -> torch.Tensor:
+def _launch_msm(affine: torch.Tensor, scalars: torch.Tensor, marks: list | None = None) -> torch.Tensor:
     n = affine.shape[0]
     dev = affine.device
     c = window_bits(n)
@@ -136,13 +135,13 @@ def _launch_msm(affine: torch.Tensor, scalars: torch.Tensor, cios: bool = False,
     sd, perm = sort_digits(digits, signed=False)
     del digits
     _mark(marks, "sort")
-    buckets = accumulate(affine, sd, perm, 1 << c, "msm", cios)
+    buckets = accumulate(affine, sd, perm, 1 << c, "msm")
     del sd, perm
     _mark(marks, "accumulate")
-    wsums = fold(buckets, "msm", cios)
+    wsums = fold(buckets, "msm")
     del buckets
     _mark(marks, "fold")
-    out = horner(wsums, c, "msm", cios)
+    out = horner(wsums, c, "msm")
     _mark(marks, "horner")
     return out
 
@@ -166,12 +165,9 @@ class MSM:
             self._table = group.doubling_table(self.bases)
         return self._table
 
-    def __call__(self, scalars: torch.Tensor, *, cios: bool = False, marks: list | None = None
-                 ) -> torch.Tensor:
-        """sum_i scalars[i] * bases[i]. ``cios`` runs the kernels on
-        field.cuh's 64-bit CIOS arithmetic in place of the PTX carry chains,
-        and ``marks`` collects a CUDA event after each stage: both for
-        timing the kernel (chip_smoke.py)."""
+    def __call__(self, scalars: torch.Tensor, *, marks: list | None = None) -> torch.Tensor:
+        """sum_i scalars[i] * bases[i]. ``marks`` collects a CUDA event
+        after each stage, for timing the kernel by stage (chip_smoke.py)."""
         if scalars.shape != (self.bases.shape[0], ff.W):
             raise ValueError(f"MSM: expected scalars {(self.bases.shape[0], ff.W)}, "
                              f"got {tuple(scalars.shape)}")
@@ -180,7 +176,7 @@ class MSM:
         scalars = scalars.contiguous()
         kernels.check_cuda_tensor("msm bases", self.bases, torch.int32, ff.W)
         kernels.check_cuda_tensor("msm scalars", scalars, torch.int32, ff.W)
-        return _launch_msm(self.affine, scalars, cios, marks)
+        return _launch_msm(self.affine, scalars, marks)
 
 
 def plain_msm(bases: torch.Tensor, scalars: torch.Tensor, table: torch.Tensor | None = None):

@@ -452,7 +452,7 @@ def create_proof(
     h_parts = []
     for j in range(P):
         shift = domain.g_coset * pow(domain.extended_omega, j, FR_MOD) % FR_MOD
-        part_vals = nttmod.ntt(ff.mont_mul(FR, big, nttmod.power_table(shift, n, dev)), k)
+        part_vals = nttmod.coset_ntt(big, shift)  # the shift fused into kernel B's loads
         domain_x = ff.mont_mul(FR, wn_pows, FR.const(shift, dev))
         h_parts.append(_h_part(protocol, cols_order, part_vals, domain_x, ch_mont, y))
         del part_vals

@@ -6,11 +6,15 @@ Port of ``zkevm_tpu/poly/ntt.py`` (``_fft_core``, ``ntt``, ``intt``,
 ``ntt_t``, ``intt_t``). Arrays have shape ``(..., n, 8)``: leading
 dimensions batch several polynomials through one transform (where the
 reference bench vmaps ``ntt_t``). On CUDA the radix-2 transform is the
-kernel in ``csrc/ntt.cu`` and the four-step one the three passes of
-``csrc/ntt4.cu`` (column pass, row pass, transpose); on the CPU the plain
-versions below repeat the reference's stage loop with the field's plain
-arithmetic. Twiddle and power tables are built on the tensor's device by a
-prefix product (kernel A), cached per size.
+kernel in ``csrc/ntt.cu`` (one pass up to 2^12 elements, a column and a
+row pass up to 2^24, one more column pass up to 2^36, with the coset shift
+and the inverse's 1/n fused into its loads and stores) and the four-step
+one the three passes of ``csrc/ntt4.cu`` (column pass, row pass,
+transpose); on the CPU the plain versions below repeat the reference's
+stage loop with the field's plain arithmetic, and scale by the powers
+apart. Twiddle and power tables are
+built on the tensor's device by a prefix product (kernel A), the twiddle
+tables cached per size.
 """
 
 from __future__ import annotations
@@ -24,15 +28,26 @@ from zkevm_tpu_torch.ff import field as ff
 from zkevm_tpu_torch.ff.field import FR
 from zkevm_tpu_torch.ff.goldens import FR_MOD, fr_root_of_unity
 
-SHARED_LOG = 10  # stages run in shared memory: tiles of 2^10 elements
+ONE_PASS_LOG = 12  # kernel B's sub-transforms hold 2^12 elements: 1, 2, 3 passes up to 2^12, 2^24, 2^36
+SCRATCH_ELEMS = 1 << 25  # kernel B's scratch between its passes: at most 2^25 elements (1 GiB)
 FOURSTEP_MIN_K = 8  # ntt_t: one radix-2 transform at k <= 7, four steps above
 SUB_LOG_MAX = 12  # kernel I holds one sub-transform of up to 2^12 elements in shared memory
 
 
+POWER_SPLIT = 12  # power tables above 2^12 entries: two small ones and one product an entry
+
+
 def power_table(base: int, n: int, device) -> torch.Tensor:
-    """(n, 8) Montgomery powers base^i, i < n, built on ``device``."""
+    """(n, 8) Montgomery powers base^i, i < n, built on ``device``: a prefix
+    product up to 2^12 entries; above, base^(i - i mod 2^12) times
+    base^(i mod 2^12), one Montgomery product an entry (the same values)."""
     b = FR.const(base, device)
-    return ff.prefix_product(FR, b.expand(n, ff.W))
+    lo_n = 1 << POWER_SPLIT
+    if n <= lo_n:
+        return ff.prefix_product(FR, b.expand(n, ff.W))
+    lo = power_table(base, lo_n, device)
+    hi = power_table(pow(base, lo_n, FR_MOD), -(-n // lo_n), device)
+    return ff.mont_mul(FR, hi[:, None], lo[None]).reshape(-1, ff.W)[:n]
 
 
 @lru_cache(maxsize=32)
@@ -68,32 +83,90 @@ def _plain_fft(a: torch.Tensor, k: int, tw: torch.Tensor) -> torch.Tensor:
     return a
 
 
-def _launch_fft(a: torch.Tensor, k: int, tw: torch.Tensor) -> torch.Tensor:
+def fft_passes(k: int, sub: int = ONE_PASS_LOG) -> list[tuple]:
+    """Kernel B's launches for a 2^k transform whose sub-transforms hold up to
+    2^sub elements, in order, one pass through device memory each:
+    ``("cols", dst, src, m, k1, 0)``, the column pass of 2^m-element
+    transforms viewed as 2^k1 rows, or ``("rows", dst, src, k2, log_n1,
+    log_outer)``, the row pass (``csrc/ntt.cu``), with dst and src each one
+    of "in", "out" and "scratch". One row pass up to 2^sub elements; a
+    column and a row pass (the four-step split) up to 2^(2 sub); above, up
+    to 2^(3 sub), a column pass of 2^(k // 3) rows into the output and the
+    two passes over every row it leaves."""
+    if k <= sub:
+        return [("rows", "out", "in", k, 0, 0)]
+    if k <= 2 * sub:
+        k1, k2 = fourstep_split(k)
+        return [("cols", "scratch", "in", k, k1, 0), ("rows", "out", "scratch", k2, k1, 0)]
+    if k <= 3 * sub:
+        k0 = k // 3
+        k1, k2 = fourstep_split(k - k0)
+        return [("cols", "out", "in", k, k0, 0), ("cols", "scratch", "out", k - k0, k1, 0),
+                ("rows", "out", "scratch", k2, k1, k0)]
+    raise ValueError(f"ntt: k={k} above {3 * sub}, the sizes kernel B's three passes hold")
+
+
+def _launch_fft(a: torch.Tensor, k: int, inverse: bool, pre, post, scale) -> torch.Tensor:
+    """Kernel B on (..., 2^k, 8): the launches of :func:`fft_passes`, over
+    groups of columns that the scratch buffer holds. ``pre`` / ``post``
+    (2^k, 8) tables or None, ``scale`` one element or None; ``pre`` goes to
+    the first pass, ``post`` and ``scale`` to the last."""
     kernels.check_cuda_tensor("ntt input", a, torch.int32, ff.W)
     n = 1 << k
+    for name, t, shape in (("pre", pre, (n, ff.W)), ("post", post, (n, ff.W)), ("scale", scale, (ff.W,))):
+        if t is not None:
+            kernels.check_cuda_tensor(f"ntt {name}", t, torch.int32, ff.W)
+            if tuple(t.shape) != shape:
+                raise ValueError(f"ntt {name}: expected shape {shape}, got {tuple(t.shape)}")
+    passes = fft_passes(k)
     batch = a.numel() // (n * ff.W)
     out = torch.empty_like(a)
     if batch == 0:
         return out
-    kernels.launch("ntt", "ntt", "zk_ntt_bitrev", out.data_ptr(), a.data_ptr(), k, batch)
-    logt = min(k, SHARED_LOG)
-    kernels.launch("ntt", "ntt", "zk_ntt_shared", out.data_ptr(), tw.data_ptr(), k, logt, batch)
-    for s in range(logt + 1, k + 1):
-        kernels.launch("ntt", "ntt", "zk_ntt_stage", out.data_ptr(), tw.data_ptr(), k, s, batch)
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    dev = str(a.device)
+    group = batch if len(passes) == 1 else max(1, SCRATCH_ELEMS >> k)
+    scratch = None
+    if len(passes) > 1:
+        scratch = torch.empty(min(group, batch), n, ff.W, dtype=torch.int32, device=a.device)
+    step = n * ff.W * 4  # bytes of one column
+    for c0 in range(0, batch, group):
+        cols = min(group, batch - c0)
+        buf = {"in": a.data_ptr() + c0 * step, "out": out.data_ptr() + c0 * step, "scratch": ptr(scratch)}
+        for i, (kind, dst, src, m, sub, outer) in enumerate(passes):
+            first = ptr(pre) if i == 0 else 0
+            last = i == len(passes) - 1
+            if kind == "cols":
+                kernels.launch("ntt", "ntt", "zk_ntt_cols", buf[dst], buf[src],
+                               _omega_powers(m, inverse, dev).data_ptr(),
+                               _omega_powers(sub, inverse, dev).data_ptr(), first, m, sub, cols << (k - m))
+            else:
+                kernels.launch("ntt", "ntt", "zk_ntt_rows", buf[dst], buf[src],
+                               _omega_powers(m, inverse, dev).data_ptr(), first, ptr(post) if last else 0,
+                               ptr(scale) if last else 0, m, sub, outer, cols << (k - m))
     return out
 
 
-def fft_core(a: torch.Tensor, k: int, inverse: bool) -> torch.Tensor:
-    """In-order -> in-order radix-2 DIT NTT over dim -2 of (..., n, 8)."""
+def fft_core(a: torch.Tensor, k: int, inverse: bool, pre: torch.Tensor | None = None,
+             post: torch.Tensor | None = None, scale: torch.Tensor | None = None) -> torch.Tensor:
+    """In-order -> in-order radix-2 DIT NTT over dim -2 of (..., n, 8), each
+    input element j times ``pre[j]`` and each output element i times
+    ``post[i]`` (or ``scale``), where given."""
     n = 1 << k
     if a.shape[-2] != n:
         raise ValueError(f"ntt: expected {n} rows, got shape {tuple(a.shape)}")
     if n == 1:
-        return a.clone()
-    tw = _omega_powers(k, inverse, str(a.device))
+        out = a.clone()
+        for t in (pre, post if post is not None else scale):
+            if t is not None:
+                out = ff.mont_mul(FR, out, t)
+        return out
     if a.device.type == "cpu":
-        return _plain_fft(a, k, tw)
-    return _launch_fft(a.contiguous(), k, tw)
+        tw = _omega_powers(k, inverse, str(a.device))
+        x = _plain_fft(a if pre is None else ff.PLAIN["mul"](FR, a, pre), k, tw)
+        post = post if post is not None else scale
+        return x if post is None else ff.PLAIN["mul"](FR, x, post)
+    return _launch_fft(a.contiguous(), k, inverse, pre, post, scale)
 
 
 def _log2(a: torch.Tensor) -> int:
@@ -106,9 +179,10 @@ def ntt(a: torch.Tensor, k: int | None = None) -> torch.Tensor:
 
 
 def intt(a: torch.Tensor, k: int | None = None) -> torch.Tensor:
-    """Evaluations -> coefficients (includes the 1/n scaling)."""
+    """Evaluations -> coefficients (includes the 1/n scaling, fused into
+    the transform's stores on CUDA)."""
     k = _log2(a) if k is None else k
-    return ff.mont_mul(FR, fft_core(a, k, inverse=True), _n_inv(k, a.device))
+    return fft_core(a, k, inverse=True, scale=_n_inv(k, a.device))
 
 
 def scale_by_powers(a: torch.Tensor, base: int) -> torch.Tensor:
@@ -117,13 +191,17 @@ def scale_by_powers(a: torch.Tensor, base: int) -> torch.Tensor:
 
 
 def coset_ntt(a: torch.Tensor, shift: int) -> torch.Tensor:
-    """Evaluate the polynomial on the coset shift * <omega>."""
-    return ntt(scale_by_powers(a, shift))
+    """Evaluate the polynomial on the coset shift * <omega>: the transform
+    of a[i] shift^i (the powers applied as kernel B loads a)."""
+    return fft_core(a, _log2(a), inverse=False, pre=power_table(shift, a.shape[-2], a.device))
 
 
 def coset_intt(a: torch.Tensor, shift: int) -> torch.Tensor:
-    """Inverse of :func:`coset_ntt`."""
-    return scale_by_powers(intt(a), pow(shift, FR_MOD - 2, FR_MOD))
+    """Inverse of :func:`coset_ntt`: output i times shift^-i / n, one
+    product as kernel B stores it."""
+    k = _log2(a)
+    post = ff.mont_mul(FR, power_table(pow(shift, FR_MOD - 2, FR_MOD), 1 << k, a.device), _n_inv(k, a.device))
+    return fft_core(a, k, inverse=True, post=post)
 
 
 # ---------------------------------------------------------------------------
