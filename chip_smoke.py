@@ -20,8 +20,9 @@ Phases, each printing its own lines before the last line:
    and 22; the lazy-13 field J over 2^20 Fq and 2^16 Fr elements, every
    signed-scale tuple of the point formulas and op chains; L's point
    formulas over 2^16 lanes, its MSM at 2^12 (c = 4) and 2^14 (c = 16) on
-   random and 0/1 scalars with its flag, the engine against C's MSM, and
-   the forced fallback of equal bases with equal scalars; the quotient
+   random and 0/1 scalars with its flag, the engine against C's MSM, its
+   time by stage and launches per MSM, and the forced fallback of equal
+   bases with equal scalars; the quotient
    evaluator M on the toy circuit's constraints at 2^12 rows);
 3. the K=5 toy proofs, field by field against the reference proofs
    recorded in ``tests/vectors/torch_port_toy_proof.json``; then the small
@@ -95,8 +96,12 @@ Phases, each printing its own lines before the last line:
    ``verify_proof`` (True, and False on a tampered eval), with its launches
    (L > 0, C's MSM 0) and ``Msm13``'s calls and fallbacks (0); then L at
    2^20, c = 16, lanes 4096, window groups of 8 (the reference bench's MSM)
-   against its plain version word for word, and its own result against C's
-   MSM on random and 0/1 scalars. L's boundary tree doubles where its inputs
+   against its plain version word for word (the plain version runs L's lane
+   offsets, exclusive scans over groups of 8 level by level, where the
+   reference's two blocked scans chain 129 additions; its default keeps the
+   reference's words), and its own result against C's
+   MSM on random and 0/1 scalars, with its time by stage and launches per
+   MSM. L's boundary tree doubles where its inputs
    are equal (every boundary past a window's largest digit holds the window
    total), where the reference raises its doubling flag and falls back.
 
@@ -433,6 +438,20 @@ def stage_ms(torch, run, reps: int = 3) -> dict:
             totals[name] = totals.get(name, 0.0) + prev.elapsed_time(ev)
             prev = ev
     return {name: v / reps for name, v in totals.items()}
+
+
+def msm13_split(torch, engine, scalars) -> dict:
+    """Kernel L's stages on these scalars (``stage_ms`` over ``Msm13.raw``)
+    and its launches in one MSM; logs both."""
+    from zkevm_tpu_torch import kernels
+
+    stages = stage_ms(torch, lambda marks: engine.raw(scalars, marks=marks))
+    before = kernels.launch_counts()["msm13"]
+    engine.raw(scalars)
+    launches = kernels.launch_counts()["msm13"] - before
+    log(f"  msm13 n={scalars.shape[0]} c={engine.c} by stage (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f"; {launches} launches an MSM")
+    return {"stages_ms": stages, "launches_per_msm": launches}
 
 
 def yardstick(torch, scalars) -> float:
@@ -1132,10 +1151,13 @@ def phase_msm13(torch, rep: Report, rng, dev, lanes: int = 1 << 16,
     double_l over ``lanes`` lanes (identity, equal and opposite lanes among
     them); the MSM at 2^12 points, c = 4, and at 2^14, c = 16 (lanes 4096,
     window groups of 8) with zero scalars, r - 1 and repeated bases, its
-    flag included, and the engine (L's own result unless the flag fell back)
+    flag included (the plain version with L's lane offsets, ``lane_radix``),
+    its time by stage and launches, and the engine (L's own result unless
+    the flag fell back)
     against C's MSM by affine points, on random and on 0/1 scalars (whose
-    boundary trees double nearly every node); the forced flag of equal bases
-    with equal scalars."""
+    boundary trees double nearly every node); the MSM at n = 12, 96 and 3904,
+    c = 4, whose lanes a window are not a power of two, against the same
+    two; the forced flag of equal bases with equal scalars."""
     from zkevm_tpu_torch.ec import group, msm as msmmod, msm13 as m13
     from zkevm_tpu_torch.ff import field as ff, lazy13 as lz
     from zkevm_tpu_torch.ff.goldens import FR_MOD
@@ -1191,12 +1213,13 @@ def phase_msm13(torch, rep: Report, rng, dev, lanes: int = 1 << 16,
         bases[11] = bases[10]
         engine = m13.Msm13(bases, c=c)
         c_msm = msmmod.MSM(bases)
-        flags = []
+        flags, ref_flags = [], []
         for label, sc in (("random", ff.to_tensor(ff.words_from_ints(ks), dev)),
                           ("0/1", ff.to_tensor(ff.words_from_ints(list(rng.integers(0, 2, n))), dev))):
-            got, flag = m13.msm13(engine.ax13, engine.ay13, sc, c=c)
+            got, flag = engine.raw(sc)
             (want, wflag), pms = plain_ms_of(torch, lambda: m13.PLAIN["msm13"](engine.ax13, engine.ay13, sc, c,
-                                                                               254, 4096, 8))
+                                                                               254, 4096, 8,
+                                                                               lane_radix=m13.LANE_RADIX))
             check_equal(f"msm13 n={n} c={c} ({label} scalars)", same_words(got, want) + abs(flag - wflag))
             before = engine.fallbacks
             if group.to_affine_ints(engine(sc)[None]) != group.to_affine_ints(c_msm(sc)[None]) \
@@ -1204,11 +1227,25 @@ def phase_msm13(torch, rep: Report, rng, dev, lanes: int = 1 << 16,
                 raise AssertionError(f"Msm13 n={n} c={c} ({label} scalars) differs from C's msm, "
                                      "or its fallback was not counted")
             flags.append(flag)
+            # the reference's lane offsets: their flag (the association decides which sums meet equal inputs)
+            ref_flags.append(m13.PLAIN["msm13"](engine.ax13, engine.ay13, sc, c, 254, 4096, 8)[1])
             if label == "random":
-                timed[(n, c)] = (cuda_ms(torch, lambda: m13.msm13(engine.ax13, engine.ay13, sc, c=c), reps=3), pms,
-                                 flag, msm13_work(torch, sc, c))
+                timed[(n, c)] = (cuda_ms(torch, lambda: engine.raw(sc), reps=3), pms, flag, msm13_work(torch, sc, c),
+                                 msm13_split(torch, engine, sc))
         log(f"  msm13 n={n} c={c} equals its plain version word for word on random and 0/1 scalars (flags "
-            f"{flags}); Msm13 equals C's msm on both (fallbacks {engine.fallbacks})")
+            f"{flags}; in the reference's order {ref_flags}); Msm13 equals C's msm on both (fallbacks "
+            f"{engine.fallbacks})")
+        timed[(n, c)][4]["flags_random_01"] = {"L": flags, "reference_order": ref_flags}
+    # lanes a window that are not a power of two: groups of 6, 2 (n = 12), 8, 6, 2 (96) and 8, 8, 61 (3904)
+    for n in (12, 96, 3904):
+        engine = m13.Msm13(pts[:n].clone(), c=4)
+        sc = ff.to_tensor(ff.words_from_ints(_random_scalars(n, rng)), dev)
+        got, flag = engine.raw(sc)
+        want, wflag = m13.PLAIN["msm13"](engine.ax13, engine.ay13, sc, 4, 254, 4096, 8, lane_radix=m13.LANE_RADIX)
+        check_equal(f"msm13 n={n} c=4 (lanes {m13.lane_groups(n)})", same_words(got, want) + abs(flag - wflag))
+        if flag or group.to_affine_ints(engine(sc)[None]) != group.to_affine_ints(msmmod.MSM(pts[:n])(sc)[None]):
+            raise AssertionError(f"Msm13 n={n} c=4: flag {flag}, or it differs from C's msm")
+    log("  msm13 n=12, 96, 3904 c=4 (lane groups not all of 8) equal the plain version word for word and C's msm")
     # the forced flag: every base equal, every scalar equal
     bases = pts[:1].expand(64, 3, 8).contiguous()
     sc = ff.to_tensor(ff.words_from_ints([_random_scalars(1, rng)[0]] * 64), dev)
@@ -1220,8 +1257,9 @@ def phase_msm13(torch, rep: Report, rng, dev, lanes: int = 1 << 16,
         raise AssertionError("Msm13: the forced fallback was not counted or differs from C's msm")
     log("  msm13: equal bases with equal scalars raise the flag; Msm13 falls back, counts it, equals C's msm")
     (n4, c4), (n, c) = cases
-    ms, pms, flag, work = timed[(n, c)]
+    ms, pms, flag, work, split = timed[(n, c)]
     rep.record("msm13", f"msm13 n={n}, c={c}, lanes=4096, wgroup=8", 0, ms, pms, *work[:2], macs=work[2])
+    rep.rows["msm13"].update({f"n{n}_c{c}_{k}": v for k, v in split.items()})
     b4, by4 = bound(*timed[(n4, c4)][3])
     rep.rows["msm13"].update({f"n{n4}_c{c4}_ms": timed[(n4, c4)][0], f"n{n4}_c{c4}_plain_ms": timed[(n4, c4)][1],
                               f"n{n4}_c{c4}_bound_ms": b4, f"n{n4}_c{c4}_bound_by": by4,
@@ -2549,20 +2587,22 @@ def phase_l13(torch, rep: Report, rng, dev, seed: int, mpt: dict) -> dict:
     # affine points on random and 0/1 scalars, with no flag
     sc = ff.to_tensor(ff.words_from_ints(_random_scalars(n, rng)), dev)
     bits = ff.to_tensor(ff.words_from_ints(list(rng.integers(0, 2, n))), dev)
-    got_l, flag = m13.msm13(engine.ax13, engine.ay13, sc)
-    (want, wflag), pms = plain_ms_of(torch, lambda: m13.PLAIN["msm13"](engine.ax13, engine.ay13, sc, 16, 254, 4096, 8))
+    got_l, flag = engine.raw(sc)
+    (want, wflag), pms = plain_ms_of(torch, lambda: m13.PLAIN["msm13"](engine.ax13, engine.ay13, sc, 16, 254, 4096, 8,
+                                                                       lane_radix=m13.LANE_RADIX))
     err = max([max_abs_err(torch, getattr(got_l, c), getattr(want, c)) for c in ("x", "y", "z")]
               + [int((got_l.inf != want.inf).sum().item()), abs(flag - wflag)])
     check_equal(f"msm13 at n={n}, c=16", err)
     del want
     c_msm = msmmod.MSM(params.g1_powers)
     for label, s_ in (("random", sc), ("0/1", bits)):
-        own, oflag = (got_l, flag) if s_ is sc else m13.msm13(engine.ax13, engine.ay13, s_)
+        own, oflag = (got_l, flag) if s_ is sc else engine.raw(s_)
         if oflag or group.to_affine_ints(m13.to_point(own)) != group.to_affine_ints(c_msm(s_)[None]):
             raise AssertionError(f"msm13 at n={n}, c=16 ({label} scalars): flag {oflag}, or its own result "
                                  "differs from C's msm")
-    ms16 = cuda_ms(torch, lambda: m13.msm13(engine.ax13, engine.ay13, sc), reps=3)
+    ms16 = cuda_ms(torch, lambda: engine.raw(sc), reps=3)
     c_ms = cuda_ms(torch, lambda: c_msm(sc), reps=3)
+    split = msm13_split(torch, engine, sc)
     log(f"  msm13 at n={n}, c=16 equals its plain version word for word (flag {flag}; plain {pms / 1e3:.1f} s) "
         f"and C's msm on random and 0/1 scalars: {ms16:.2f} ms (C's msm {c_ms:.2f} ms)")
     # kernel J at the path's shape: the SRS's affine coordinates into lazy-13
@@ -2580,10 +2620,11 @@ def phase_l13(torch, rep: Report, rng, dev, seed: int, mpt: dict) -> dict:
         "main_shape": f"msm13 n={n}, c=16, lanes=4096, wgroup=8 (the l13 engine's, the reference bench's)",
         "main_shape_ms": ms16, "main_shape_max_abs_err": err, "main_shape_plain_ms": pms,
         "main_shape_plain_on": "whole", "main_shape_bound_ms": b, "main_shape_bound_by": by,
-        "main_shape_held_to": "its plain version, word for word (random scalars), and C's msm by affine point "
-                              "(random and 0/1 scalars), flag 0",
+        "main_shape_held_to": "its plain version with L's lane offsets (lane_radix), word for word and flag "
+                              "(random scalars), and C's msm by affine point (random and 0/1 scalars), flag 0",
         "main_shape_flag": flag, "c_msm_ms": c_ms,
         "proof_calls": len(calls), "proof_fallbacks": proof_fallbacks,
+        **{f"main_shape_{k}": v for k, v in split.items()},
     })
     return {"times": times, "launches": launches, "composites": meter.summary(), "calls": len(calls)}
 
@@ -2618,8 +2659,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     built = kernels.build_all()
     log(f"phase build: {time.perf_counter() - t:.1f} s " + json.dumps({k: round(v, 1) for k, v in built.items()}))
-    ptxas = {lib: ptxas_summary(kernels.BUILD_LOGS.get(lib, "")) for lib in ("curve", "pippenger", "quotient", "ntt")}
-    log("  ptxas -v of C, G, M and B: " + json.dumps(ptxas))
+    ptxas = {lib: ptxas_summary(kernels.BUILD_LOGS.get(lib, ""))
+             for lib in ("curve", "pippenger", "quotient", "ntt", "msm13")}
+    log("  ptxas -v of C, G, M, B and L: " + json.dumps(ptxas))
 
     rep = Report()
     gen = torch.Generator().manual_seed(args.seed)
@@ -2718,6 +2760,7 @@ def main(argv=None) -> int:
     rep.rows["pippenger"]["ptxas"] = ptxas["pippenger"]
     rep.rows["quotient"]["ptxas"] = ptxas["quotient"]
     rep.rows["ntt"]["ptxas"] = ptxas["ntt"]
+    rep.rows["msm13"]["ptxas"] = ptxas["msm13"]
     log(f"total: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": list(rep.rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,17 +24,26 @@ discrete-log relation between the bases can give (equal bases with equal
 scalars, say); ``Msm13`` then falls back to the Pippenger MSM G
 (``ec/pippenger.py``, the reference's ``msm_t``) and counts it.
 
-On CUDA tensors ``msm13`` launches kernel L (``csrc/msm13.cu``): digits,
-the gather of sorted leaves, the per-lane scan (one thread per (window,
-lane)), the two lane-offset scans and their combination, the boundary
-prefix sums, one launch per tree level, the per-window (B - 1) * Total -
-sum PS, and the Horner; the sort is ``torch.sort``. L keeps the plain
-version's order of additions, but stores a lane's prefix value only at the
-end of each digit's run (the only ones the boundaries read), indexed by
-digit. On CPU tensors the plain version below runs the same steps on
-batches of int64 limbs, with the same words and flags; its boundary stage
-and tree compute each distinct pair of inputs once (at small N most of the
-2^c boundaries repeat a prefix), which changes no word. With
+On CUDA tensors ``msm13`` launches kernel L (``csrc/msm13.cu``), each
+stage once for all W windows (``wgroup`` bounds the plain version's memory
+only): digits, the per-lane scan (one thread per (window, lane), reading
+each leaf through the sorted permutation from the bases' point-major copy
+``pack_bases``, which ``Msm13`` keeps), the lane offsets (``_lane_offsets``:
+exclusive scans over groups of 8 lane totals level by level, and the
+offsets back down), the boundary prefix sums, one launch per tree level,
+the per-window (B - 1) * Total - sum PS, and the Horner; the sort is
+``torch.sort`` on 16-bit keys. L keeps the plain version's order of
+additions but in the lane offsets, where the reference runs two chains of
+~sqrt(Lw) additions: so L's words equal those of the plain version run
+with ``lane_radix=LANE_RADIX``, and differ from the reference's, whose
+affine points and flags they give where no repeated base meets itself. L
+stores a lane's prefix value only at the end of each digit's run (the only
+ones the boundaries read; ``run_end_tags``), indexed by digit, and keeps
+its points as 40-word records (``pack_points``). On CPU tensors the plain
+version below runs the same steps on batches of int64 limbs, with the same
+words and flags; its boundary stage and tree compute each distinct pair of
+inputs once (at small N most of the 2^c boundaries repeat a prefix), which
+changes no word. With
 ``complete=False`` its tree raises the flag as the reference's does, and
 its words and flags are the reference's.
 """
@@ -45,10 +54,12 @@ import ctypes
 from functools import lru_cache
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from zkevm_tpu_torch import kernels
 from zkevm_tpu_torch.ec import group, pippenger as pip
+from zkevm_tpu_torch.ec.msm import _mark, sort_digits
 from zkevm_tpu_torch.ff import field as ff, lazy13 as lz
 from zkevm_tpu_torch.ff.field import FQ
 from zkevm_tpu_torch.ff.lazy13 import L13
@@ -209,11 +220,13 @@ def _cat(*ps: G1L) -> G1L:
                torch.cat([p.inf for p in ps]))
 
 
-def _plain_window_sums(px, py, sd, c: int, complete: bool = True):
+def _plain_window_sums(px, py, sd, c: int, complete: bool = True, lane_radix: int | None = None):
     """The reference's ``_window_sums`` on (21, G, Lw, S) int64 sorted
     leaves and (G, N) sorted digits -> (window sums, flat G1L over G; flag).
     ``complete``: the boundary tree doubles where its inputs are equal (L's
-    order); else it raises the reference's flag there."""
+    order); else it raises the reference's flag there. ``lane_radix``: the
+    lane offsets in kernel L's association (``_lane_offsets``) in place of
+    the reference's two blocked scans."""
     _, G, Lw, S = px.shape
     dev = px.device
     B = 1 << c
@@ -248,11 +261,24 @@ def _plain_window_sums(px, py, sd, c: int, complete: bool = True):
                   torch.stack([o.inf for o in offs], dim=-1).reshape(-1))
         return off, acc, fl
 
-    within_o, blk_tot, f1 = exscan(totals, A, Bz)  # (G*A*Bz), (G*A)
-    blk_o, grand, f2 = exscan(blk_tot, 1, A)  # (G*A), (G)
-    bo = _take(blk_o, torch.arange(G * A, device=dev).reshape(G * A, 1).expand(G * A, Bz).reshape(-1))
-    off, f3 = _p_add_l(bo, within_o)  # lane g*Lw + a*Bz + b
-    flag = flag | f1 | f2 | f3
+    if lane_radix is None:
+        within_o, blk_tot, f1 = exscan(totals, A, Bz)  # (G*A*Bz), (G*A)
+        blk_o, grand, f2 = exscan(blk_tot, 1, A)  # (G*A), (G)
+        bo = _take(blk_o, torch.arange(G * A, device=dev).reshape(G * A, 1).expand(G * A, Bz).reshape(-1))
+        off, f3 = _p_add_l(bo, within_o)  # lane g*Lw + a*Bz + b
+        flag = flag | f1 | f2 | f3
+    else:  # groups of lane_radix, level by level, then the offsets back down
+        levels, cur, per = [], totals, Lw
+        for blen in lane_groups(Lw, lane_radix):
+            wo, cur, f = exscan(cur, per // blen, blen)
+            flag = flag | f
+            levels.append((wo, blen))
+            per //= blen
+        grand, off = cur, levels[-1][0]
+        for wo, blen in reversed(levels[:-1]):
+            up = torch.arange(wo.inf.shape[0], device=dev) // blen
+            off, f = _p_add_l(_take(off, up), wo)
+            flag = flag | f
 
     # the prefix sums at the B-1 boundaries, each distinct (window, position) once
     n = Lw * S
@@ -340,7 +366,8 @@ def geometry(n: int, c: int, lanes: int, wgroup: int, num_bits: int = 254) -> di
     return {"W": num_windows(c, num_bits), "Lw": lw, "S": n // lw, "A": a, "Bz": lw // a, "B": 1 << c, "m": m}
 
 
-def _plain_msm13(ax, ay, scalars, c, num_bits, lanes, wgroup, keep_windows=False, complete=True):
+def _plain_msm13(ax, ay, scalars, c, num_bits, lanes, wgroup, keep_windows=False, complete=True,
+                 lane_radix=None):
     n = ax.shape[1]
     geo = geometry(n, c, lanes, wgroup, num_bits)
     W, Lw, S = geo["W"], geo["Lw"], geo["S"]
@@ -351,7 +378,7 @@ def _plain_msm13(ax, ay, scalars, c, num_bits, lanes, wgroup, keep_windows=False
         g1 = min(g0 + wgroup, W)
         pg = perm[g0:g1].reshape(-1)
         gw, f = _plain_window_sums(ax[:, pg].reshape(L13, g1 - g0, Lw, S), ay[:, pg].reshape(L13, g1 - g0, Lw, S),
-                                   sd[g0:g1], c, complete)
+                                   sd[g0:g1], c, complete, lane_radix)
         sums.append(gw)
         group_flags.append(f)
         flag = flag | f
@@ -368,115 +395,229 @@ def _plain_msm13(ax, ay, scalars, c, num_bits, lanes, wgroup, keep_windows=False
 # Kernel L launches
 # ---------------------------------------------------------------------------
 
+LANE_RADIX = 8  # kernel L's lane offsets: exclusive scans over groups of 8, level by level (_lane_offsets)
+
+
+def lane_groups(lw: int, radix: int = LANE_RADIX) -> list[int]:
+    """The group sizes of L's lane-offset scans, level by level, for Lw
+    lanes: each level's groups take the largest divisor of what is left
+    that is at most ``radix`` (or, where only 1 is, its smallest prime
+    factor), so that no group straddles two windows; their product is Lw
+    (8, 8, 8, 8 at 4096 lanes; 6, 2 at 12; [1] at 1)."""
+    out, per = [], lw
+    while True:
+        blen = next((d for d in range(min(radix, per), 1, -1) if per % d == 0), 0)
+        blen = blen or next((d for d in range(2, per + 1) if per % d == 0), 1)
+        out.append(blen)
+        per //= blen
+        if per == 1:
+            return out
+RW = 40  # u32 words of one of L's point records (csrc/msm13.cu): x, y, z packed at 0, 12, 24, the flag at 36
+BW = 24  # u32 words of one base of the point-major copy: x packed at 0, y at 12
+
+
+def fragment_matrix_l(scale: int) -> np.ndarray:
+    """The (42, 164) reduction matrix of one scale as kernel L reads it:
+    padded to (48, 192) in kernel J's K order (column 4 j + byte is byte
+    ``byte`` of product column j), cut into mma.m16n8k32 A fragments (3
+    tiles, 6 steps, 32 lanes, 4 u32) whose K axis is L's: the thread of
+    lane (g, t) takes, at step s, the words 12 t + 2 s and 12 t + 2 s + 1
+    of a product column row as its two B registers, so that its six steps
+    read three contiguous 16-byte quads of the row."""
+    ct = lz._scaled_C(LZ, (int(scale),))
+    a = np.zeros((16 * lz.MMA_TILES, 32 * lz.MMA_STEPS), dtype=np.uint8)
+    for kk in range(lz.NBYTES):
+        a[: 2 * L13, kk : 4 * lz.NPROD : 4] = ct[:, kk * lz.NPROD : (kk + 1) * lz.NPROD]
+    out = np.zeros((lz.MMA_TILES, lz.MMA_STEPS, 32, 4), dtype=np.uint32)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for reg, (dr, half) in enumerate(((0, 0), (8, 0), (0, 1), (8, 1))):
+            for m in range(lz.MMA_TILES):
+                for s in range(lz.MMA_STEPS):
+                    w = 12 * t + 2 * s + half
+                    out[m, s, lane, reg] = int.from_bytes(a[16 * m + g + dr, 4 * w : 4 * w + 4].tobytes(), "little")
+    return out
+
+
 @lru_cache(maxsize=4)
-def _mats(device: str):
-    """Host array of the eight scaled reduction matrices' device pointers
-    (csrc/lazy13.cuh l13::Mats), with the tensors it points to."""
-    tensors = [lz.device_matrix(LZ, s, device) for s in SCALES]
-    return (ctypes.c_uint64 * len(SCALES))(*[t.data_ptr() for t in tensors]), tensors
+def _mats(device: str) -> torch.Tensor:
+    """The eight scaled reduction matrices (csrc/lazy13.cuh l13::Scale
+    order) in L's fragment order, one contiguous device array."""
+    return ff.to_tensor(np.concatenate([fragment_matrix_l(s).reshape(-1) for s in SCALES]), device)
 
 
 def _field():
     return ctypes.addressof(lz.field_struct(LZ))
 
 
-def _pts(count: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """An internal point array: (3, 21, count) int32 coordinates and a
-    (count,) identity flag."""
-    return (torch.empty(3, L13, count, dtype=torch.int32, device=device),
-            torch.empty(count, dtype=torch.bool, device=device))
+def _pack(a: torch.Tensor) -> torch.Tensor:
+    """(21, N) limbs (each below 2^16) -> (N, 12) u32 words as int32: word i
+    holds limbs 2 i and 2 i + 1, word 10 limb 20, word 11 zero."""
+    a = a.to(torch.int64)
+    lo, hi = a[0::2], torch.cat([a[1::2], torch.zeros_like(a[:1])])  # (11, N) each
+    w = torch.cat([lo | (hi << 16), torch.zeros_like(a[:1])]) & 0xFFFFFFFF
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32).T
 
 
-def _stack(p: G1L) -> tuple[torch.Tensor, torch.Tensor]:
-    xyz = torch.stack([lz._flat(c).to(torch.int32) for c in (p.x, p.y, p.z)]).contiguous()
-    return xyz, p.inf.reshape(-1).to(torch.bool).contiguous()
+def _unpack(w: torch.Tensor) -> torch.Tensor:
+    """(N, 12) packed words -> (21, N) int32 limbs (``_pack``'s inverse)."""
+    w = w.T.to(torch.int64) & 0xFFFFFFFF
+    out = torch.stack([w[:11] & 0xFFFF, w[:11] >> 16], dim=1).reshape(22, -1)[:L13]
+    return out.to(torch.int32)
+
+
+def pack_bases(ax13: torch.Tensor, ay13: torch.Tensor) -> torch.Tensor:
+    """Affine lazy-13 bases (21, N) x 2 -> the point-major copy kernel L
+    reads, (N, 24) int32: x packed in words 0-10, y in 12-22 (two 16-bit
+    limbs a word; lazy limbs are below 2^13 + 2^6)."""
+    return torch.cat([_pack(ax13), _pack(ay13)], dim=1).contiguous()
+
+
+def unpack_bases(bases: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return _unpack(bases[:, :12]), _unpack(bases[:, 12:])
+
+
+def pack_points(p: G1L) -> torch.Tensor:
+    """Points of any batch -> (count, 40) int32 records of kernel L."""
+    xyz = [_pack(lz._flat(c)) for c in (p.x, p.y, p.z)]
+    flag = p.inf.reshape(-1, 1).to(torch.int32)
+    return torch.cat([*xyz, flag, torch.zeros_like(flag.expand(-1, 3))], dim=1).contiguous()
+
+
+def unpack_points(rec: torch.Tensor, batch) -> G1L:
+    return G1L(*(_unpack(rec[:, 12 * k : 12 * k + 12]).reshape(L13, *batch) for k in range(3)),
+               (rec[:, 36] != 0).reshape(batch))
+
+
+def run_end_tags(sd: torch.Tensor, c: int) -> torch.Tensor:
+    """The rule by which kernel L's scan stores a prefix: (W, N) sorted
+    digits -> (W, N) tags, the digit where its position ends the digit's
+    run and the digit is below B - 1 (so that some boundary reads that
+    prefix), else -1."""
+    nxt = torch.cat([sd[:, 1:], torch.full_like(sd[:, :1], -1)], dim=1)
+    return torch.where((sd != nxt) & (sd < (1 << c) - 1), sd, torch.full_like(sd, -1))
 
 
 def _unstack(xyz, inf, batch) -> G1L:
     return G1L(*(xyz[k].reshape(L13, *batch) for k in range(3)), inf.reshape(batch))
 
 
-def _launch(symbol: str, *args) -> None:
-    kernels.launch("msm13", "msm13", symbol, _field(), ctypes.addressof(_mats(args[0])[0]), *args[1:])
+def _launch(symbol: str, device: str, *args) -> None:
+    kernels.launch("msm13", "msm13", symbol, _field(), _mats(device).data_ptr(), *args)
 
 
 def _launch_point_op(op: str, p: G1L, q=None, qx=None, qy=None):
     dev = p.x.device
     batch = p.batch_shape
-    pxyz, pinf = _stack(p)
-    n = pinf.shape[0]
-    oxyz, oinf = _pts(n, dev)
+    prec = pack_points(p)
+    n = prec.shape[0]
+    out = torch.empty(n, RW, dtype=torch.int32, device=dev)
     flag = torch.zeros(1, dtype=torch.int32, device=dev)
     if n:
         if op == "add":
-            qxyz, qinf = _stack(q)
-            b1, b2 = qxyz.data_ptr(), qinf.data_ptr()
+            qrec = pack_points(q)
         elif op == "madd":
-            qa = torch.stack([lz._flat(qx).to(torch.int32), lz._flat(qy).to(torch.int32)]).contiguous()
-            b1, b2 = qa.data_ptr(), 0
+            qrec = pack_bases(lz._flat(qx), lz._flat(qy))
         else:
-            b1 = b2 = 0
-        _launch("zk_msm13_point_op", str(dev), {"add": 0, "madd": 1, "double": 2}[op], oxyz.data_ptr(),
-                oinf.data_ptr(), pxyz.data_ptr(), pinf.data_ptr(), b1, b2, flag.data_ptr(), n)
-    return _unstack(oxyz, oinf, batch), flag
+            qrec = prec
+        _launch("zk_msm13_point_op", str(dev), {"add": 0, "madd": 1, "double": 2}[op], out.data_ptr(),
+                prec.data_ptr(), qrec.data_ptr(), flag.data_ptr(), n)
+    return unpack_points(out, batch), flag
 
 
-def _launch_msm13(ax, ay, scalars, c, num_bits, lanes, wgroup, keep_windows=False):
+def _lane_offsets(totals, W, Lw, flag, pts, marks):
+    """Each lane's offset (the exclusive prefix of the lane totals of its
+    window, (W Lw) records) and each window's total (W): exclusive scans
+    over groups of at most LANE_RADIX items (``lane_groups``: no group
+    straddles two windows), level by level up to one group a window, then
+    the offsets back down (an item's offset = its group's offset + its
+    offset in the group). The reference scans A blocks of Bz lanes and then
+    the A block totals, two chains of ~sqrt(Lw) dependent additions (129 at
+    Lw = 4096); here a chain has at most LANE_RADIX additions a level (35
+    in all at Lw = 4096). So L's words differ from the reference's from
+    here on (they are the plain version's with ``lane_radix=LANE_RADIX``),
+    and its affine points and flags agree with the reference's only where
+    no repeated base meets itself: with a repeated base, one association
+    can raise the flag where the other does not."""
+    sdev = str(totals.device)
+    levels, cur = [], totals
+    for blen in lane_groups(Lw):
+        count = cur.shape[0]
+        wo, tots = pts(count), pts(count // blen)
+        _launch("zk_msm13_exscan", sdev, wo.data_ptr(), tots.data_ptr(), cur.data_ptr(), count // blen, blen,
+                flag.data_ptr())
+        levels.append((wo, blen))
+        cur = tots
+    _mark(marks, "exscan_up")
+    off = levels[-1][0]
+    for wo, blen in reversed(levels[:-1]):
+        nxt = pts(wo.shape[0])
+        _launch("zk_msm13_offsets", sdev, nxt.data_ptr(), off.data_ptr(), wo.data_ptr(), wo.shape[0], blen,
+                flag.data_ptr())
+        off = nxt
+    _mark(marks, "offsets_down")
+    return off, cur
+
+
+def _launch_msm13(ax, ay, scalars, c, num_bits, lanes, wgroup, keep_windows=False, marks=None, bases=None):
     dev = ax.device
     n = ax.shape[1]
     geo = geometry(n, c, lanes, wgroup, num_bits)
-    W, Lw, S, A, Bz, B, m = (geo[k] for k in ("W", "Lw", "S", "A", "Bz", "B", "m"))
+    W, Lw, S, B, m = (geo[k] for k in ("W", "Lw", "S", "B", "m"))
     sdev = str(dev)
-    ax, ay = ax.contiguous(), ay.contiguous()
     for name, t in (("ax13", ax), ("ay13", ay)):
         if t.device.type != "cuda" or t.dtype != torch.int32 or t.shape != (L13, n):
             raise ValueError(f"msm13 {name}: expected a CUDA int32 (21, {n}) tensor")
+    if bases is None:
+        bases = pack_bases(ax, ay)
+    kernels.check_cuda_tensor("msm13 bases", bases, torch.int32, BW)
+    if bases.shape[0] != n:
+        raise ValueError(f"msm13: {bases.shape[0]} packed bases for {n} points")
     scalars = scalars.contiguous()
     kernels.check_cuda_tensor("msm13 scalars", scalars, torch.int32, ff.W)
+
+    def pts(count):
+        return torch.empty(count, RW, dtype=torch.int32, device=dev)
+
     flag = torch.zeros(1, dtype=torch.int32, device=dev)
     digits = torch.empty(W, n, dtype=torch.int32, device=dev)
     _launch("zk_msm13_digits", sdev, digits.data_ptr(), scalars.data_ptr(), n, c, W)
-    sd, perm = torch.sort(digits, dim=1, stable=True)
-    perm = perm.to(torch.int32)
-    gw_xyz, gw_inf = _pts(W, dev)
-    for g0 in range(0, W, wgroup):
-        G = min(g0 + wgroup, W) - g0
-        gl = G * Lw
-        leaves = torch.empty(S, 2, L13, gl, dtype=torch.int32, device=dev)
-        tags = torch.empty(S, gl, dtype=torch.int32, device=dev)
-        _launch("zk_msm13_gather", sdev, leaves.data_ptr(), tags.data_ptr(), ax.data_ptr(), ay.data_ptr(),
-                sd.data_ptr(), perm.data_ptr(), g0, G, n, Lw, S, B)
-        within = torch.empty(3, L13, G * B, dtype=torch.int32, device=dev)
-        totals = torch.empty(3, L13, gl, dtype=torch.int32, device=dev)
-        _launch("zk_msm13_scan", sdev, within.data_ptr(), totals.data_ptr(), leaves.data_ptr(), tags.data_ptr(),
-                G, Lw, S, B, flag.data_ptr())
-        del leaves, tags
-        wo, wo_inf = _pts(gl, dev)
-        bt, bt_inf = _pts(G * A, dev)
-        _launch("zk_msm13_exscan", sdev, wo.data_ptr(), wo_inf.data_ptr(), bt.data_ptr(), bt_inf.data_ptr(),
-                totals.data_ptr(), G * A, Bz, flag.data_ptr())
-        bo, bo_inf = _pts(G * A, dev)
-        grand, grand_inf = _pts(G, dev)
-        _launch("zk_msm13_exscan", sdev, bo.data_ptr(), bo_inf.data_ptr(), grand.data_ptr(), grand_inf.data_ptr(),
-                bt.data_ptr(), G, A, flag.data_ptr())
-        off, off_inf = _pts(gl, dev)
-        _launch("zk_msm13_offsets", sdev, off.data_ptr(), off_inf.data_ptr(), bo.data_ptr(), bo_inf.data_ptr(),
-                wo.data_ptr(), wo_inf.data_ptr(), G, A, Bz, flag.data_ptr())
-        bacc, bacc_inf = _pts(G * m, dev)
-        _launch("zk_msm13_boundaries", sdev, bacc.data_ptr(), bacc_inf.data_ptr(), within.data_ptr(), off.data_ptr(),
-                off_inf.data_ptr(), sd.data_ptr(), g0, G, n, Lw, S, B, m, flag.data_ptr())
-        half = m
-        while half > 1:
-            half //= 2
-            _launch("zk_msm13_tree", sdev, bacc.data_ptr(), bacc_inf.data_ptr(), G, m, half)
-        _launch("zk_msm13_window", sdev, gw_xyz.data_ptr(), gw_inf.data_ptr(), bacc.data_ptr(), bacc_inf.data_ptr(),
-                grand.data_ptr(), grand_inf.data_ptr(), g0, G, W, m, c, flag.data_ptr())
-    out, out_inf = _pts(1, dev)
-    _launch("zk_msm13_horner", sdev, out.data_ptr(), out_inf.data_ptr(), gw_xyz.data_ptr(), gw_inf.data_ptr(), W, c,
+    _mark(marks, "digits")
+    sd, perm = sort_digits(digits, signed=False)  # stable, on 16-bit keys (c <= 16), as kernel C's
+    del digits
+    _mark(marks, "sort")
+    within, totals = pts(W * B), pts(W * Lw)
+    _launch("zk_msm13_scan", sdev, within.data_ptr(), totals.data_ptr(), bases.data_ptr(), sd.data_ptr(),
+            perm.data_ptr(), n, W, Lw, S, B, flag.data_ptr())
+    _mark(marks, "scan")
+    del perm
+    off, grand = _lane_offsets(totals, W, Lw, flag, pts, marks)
+    del totals
+    bacc = pts(W * m)
+    _launch("zk_msm13_boundaries", sdev, bacc.data_ptr(), within.data_ptr(), off.data_ptr(), sd.data_ptr(), W, n, Lw,
+            S, B, m, flag.data_ptr())
+    _mark(marks, "boundaries")
+    del within, off, sd
+    half = m  # level by level into a fresh array: (W, half) sums of (W, 2 half)
+    while half > 1:
+        half //= 2
+        nxt = pts(W * half)
+        _launch("zk_msm13_tree", sdev, nxt.data_ptr(), bacc.data_ptr(), W, half)
+        bacc = nxt
+        _mark(marks, "tree_top" if half == m // 2 else "tree_rest")
+    gw = pts(W)
+    scratch = pts(3 * -(-W // 128) * 128)
+    _launch("zk_msm13_window", sdev, gw.data_ptr(), scratch.data_ptr(), bacc.data_ptr(), grand.data_ptr(), W, c,
             flag.data_ptr())
+    _mark(marks, "window")
+    out = torch.empty(3, L13, 1, dtype=torch.int32, device=dev)
+    out_inf = torch.empty(1, dtype=torch.bool, device=dev)
+    _launch("zk_msm13_horner", sdev, out.data_ptr(), out_inf.data_ptr(), scratch.data_ptr(), gw.data_ptr(), W, c,
+            flag.data_ptr())
+    _mark(marks, "horner")
     result = _unstack(out, out_inf, (1,))
     if keep_windows:
-        return result, int(flag.item()), _unstack(gw_xyz, gw_inf, (W,)), None
+        return result, int(flag.item()), unpack_points(gw, (W,)), None
     return result, int(flag.item())
 
 
@@ -525,17 +666,20 @@ def double_l(p: G1L) -> G1L:
 
 
 def msm13(ax13: torch.Tensor, ay13: torch.Tensor, scalars: torch.Tensor, c: int = 16, num_bits: int = 254,
-          lanes: int = 4096, wgroup: int = 8):
+          lanes: int = 4096, wgroup: int = 8, *, bases: torch.Tensor | None = None, marks: list | None = None):
     """Variable-base MSM over affine lazy-13 bases (21, N) (no identity)
     and (N, 8) standard-form scalar words -> (G1L of batch (1,), doubling
-    flag 0/1)."""
+    flag 0/1). On the card, ``bases`` is their point-major copy
+    (``pack_bases``; made here when None) and ``marks`` collects a CUDA
+    event after each stage of kernel L (``scripts/probe_msm13.py``,
+    ``chip_smoke.py``)."""
     if ax13.shape != ay13.shape or ax13.dim() != 2 or ax13.shape[0] != L13:
         raise ValueError(f"msm13: bases must be two (21, N) tensors, got {tuple(ax13.shape)}, {tuple(ay13.shape)}")
     if scalars.shape != (ax13.shape[1], ff.W):
         raise ValueError(f"msm13: expected scalars {(ax13.shape[1], ff.W)}, got {tuple(scalars.shape)}")
     if _on_cpu(ax13, ay13, scalars):
         return _plain_msm13(ax13, ay13, scalars, c, num_bits, lanes, wgroup)
-    return _launch_msm13(ax13, ay13, scalars, c, num_bits, lanes, wgroup)
+    return _launch_msm13(ax13, ay13, scalars, c, num_bits, lanes, wgroup, marks=marks, bases=bases)
 
 
 def to_point(p: G1L) -> torch.Tensor:
@@ -574,11 +718,17 @@ class Msm13:
         geometry(points.shape[0], c, lanes, wgroup)
         self.points = points.contiguous()
         self.ax13, self.ay13 = affine_l13(self.points)
+        self.bases13 = pack_bases(self.ax13, self.ay13)  # the point-major copy kernel L reads
         self.c, self.lanes, self.wgroup = c, lanes, wgroup
         self.fallbacks = 0
 
+    def raw(self, scalars: torch.Tensor, *, marks: list | None = None):
+        """``msm13`` over the engine's bases: (G1L of batch (1,), flag)."""
+        return msm13(self.ax13, self.ay13, scalars, c=self.c, lanes=self.lanes, wgroup=self.wgroup,
+                     bases=self.bases13, marks=marks)
+
     def __call__(self, scalars: torch.Tensor) -> torch.Tensor:
-        acc, flag = msm13(self.ax13, self.ay13, scalars, c=self.c, lanes=self.lanes, wgroup=self.wgroup)
+        acc, flag = self.raw(scalars)
         if flag:
             self.fallbacks += 1
             return pip.msm(self.points, scalars)
